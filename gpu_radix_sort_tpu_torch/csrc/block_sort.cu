@@ -1,0 +1,100 @@
+// Bitonic sort of one tile of uint32 keys per CUDA block, in shared memory.
+//
+// Replaces two Pallas kernels of the JAX package:
+//   * gpu_radix_sort_tpu/ops/pallas_merge.py:131 `_tile_sort_kernel` (B1): a
+//     grid over tiles, odd tiles sorted descending under `alternate`, so that
+//     the merge levels see [ascending; descending] pairs;
+//   * gpu_radix_sort_tpu/ops/pallas_sort.py:180 `_sort_kernel` (B3): the whole
+//     array in one program, padded to a power of two with 0xFFFFFFFF.  Here
+//     that is a grid of one block with `alternate` off.
+//
+// Tile size.  A TPU tile was 2^17 keys (512 KiB of VMEM); a Hopper block has
+// at most 227 KB of shared memory.  The tile is at most 2^14 keys = 64 KB, so
+// two blocks of 1024 threads fill an SM's 2048 thread slots with 128 KB of
+// its shared memory; 2^15 keys would leave room for one block (half the
+// threads), 2^13 would add a merge level at 64M keys.  64 KB is above the
+// 48 KB static limit, so the launch raises the block's dynamic limit first.
+//
+// Bound on this card: the network does log2(T)(log2(T)+1)/2 compare-exchange
+// stages over the tile (105 at T = 2^14), each a shared-memory read and
+// write of every key and one __syncthreads; device memory is touched once
+// (4 bytes read and 4 written per key).  So it is bound by shared-memory
+// bandwidth and barrier latency, not by HBM.  Design: keep it simple and
+// right -- every stage in shared memory; register and warp-shuffle stages
+// for small strides are later work.
+//
+// Ragged tiles: slots past the last key are padded with 0xFFFFFFFF in the
+// sort domain (after the complement of a descending tile), so they sort last
+// and are never written.  Descending tiles complement keys in and out:
+// ~x reverses uint32 order exactly.  `out` must not alias `x`.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kMaxTile = 1 << 14;
+
+__global__ void __launch_bounds__(kThreads)
+block_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                  long long n, int tile, int alternate) {
+  extern __shared__ uint32_t s[];
+  const long long start = (long long)blockIdx.x * tile;
+  const int m = (int)min((long long)tile, n - start);
+  const uint32_t flip = (alternate && (blockIdx.x & 1)) ? 0xFFFFFFFFu : 0u;
+
+  for (int i = threadIdx.x; i < tile; i += kThreads) {
+    s[i] = i < m ? (x[start + i] ^ flip) : 0xFFFFFFFFu;
+  }
+  __syncthreads();
+
+  const int half = tile >> 1;
+  for (int k = 2; k <= tile; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < half; i += kThreads) {
+        // i-th pair of this stage: lo has bit j clear, hi = lo | j.
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = lo | j;
+        const uint32_t a = s[lo];
+        const uint32_t b = s[hi];
+        const bool ascending = (lo & k) == 0;
+        if ((a > b) == ascending) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    out[start + i] = s[i] ^ flip;
+  }
+}
+
+}  // namespace
+
+// Sorts each consecutive `tile` keys of x[0, n) into out (the last tile may be
+// short).  `tile` is a power of two <= 2^14.  With `alternate`, odd tiles are
+// written descending.  Launches on `stream`; returns cudaGetLastError().
+extern "C" int grs_block_sort_u32(const uint32_t* x, uint32_t* out,
+                                  long long n, int tile, int alternate,
+                                  cudaStream_t stream) {
+  if (n <= 0 || tile <= 0 || tile > kMaxTile || (tile & (tile - 1)) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = tile * (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (n + tile - 1) / tile;
+  block_sort_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
+      x, out, n, tile, alternate);
+  return (int)cudaGetLastError();
+}
+
+// The CUDA runtime's text for an error code returned by the entry points.
+extern "C" const char* grs_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

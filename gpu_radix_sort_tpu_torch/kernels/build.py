@@ -1,0 +1,102 @@
+"""Build the package's CUDA kernels at first use and load them with ctypes.
+
+The counterpart of ``gpu_radix_sort_tpu/utils/native.py``'s build at first
+use.  All of ``csrc/*.cu`` goes through one ``nvcc`` call into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), placed in ``gpu_radix_sort_tpu_torch/_build/`` under a name that
+hashes the sources and flags: an edited source builds anew, an unchanged one
+loads the library already built.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.  A failed
+``nvcc`` raises with its stderr.  Nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (x, out, n, tile, alternate, stream)
+    "grs_block_sort_u32": (_P, _P, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, _P),
+    # (x, out, n, L, stream)
+    "grs_merge_level_u32": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is not None:
+        path = Path(CUDA_HOME) / "bin" / "nvcc"
+        if path.exists():
+            return str(path)
+    path = shutil.which("nvcc")
+    if path is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libgrs_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on the first call in a process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.grs_error_string.argtypes = (ctypes.c_int,)
+    lib.grs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if status != 0:
+        text = load().grs_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({text})")

@@ -1,0 +1,33 @@
+"""Execution pipelines, ported from ``gpu_radix_sort_tpu/models/pipelines.py``.
+
+  * :class:`FullSortPipeline` — single-device full sort (reference:
+    providedGpu path, invokers.cu:45).
+
+``build()`` returns the step function and its example inputs, so scripts
+and benchmarks share one definition.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..ops import radix_sort
+from ..utils.keygen import Pcg32
+
+
+@dataclass
+class FullSortPipeline:
+    n: int = 1 << 20
+    strategy: str | None = None
+    device: str | torch.device = "cuda"
+
+    def build(self):
+        strategy = self.strategy
+
+        def step(keys: torch.Tensor) -> torch.Tensor:
+            return radix_sort.sort_full(keys, strategy=strategy)
+
+        example = torch.from_numpy(Pcg32().fill(self.n)).to(self.device)
+        return step, (example,)

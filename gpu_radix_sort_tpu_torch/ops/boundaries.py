@@ -1,0 +1,59 @@
+"""Group-boundary detection over digit-sorted keys.
+
+Port of ``gpu_radix_sort_tpu/ops/boundaries.py``: :func:`compute_boundaries`
+is bit-exact with the reference's SortState::GetBoundaries (sort.cu:367-394),
+both of its quirks included, and derived scatter-free from the true group
+starts.  Digits are searched as int64 (``searchsorted`` takes no uint32).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bits import from_int64, to_int64, validate_digit_range
+
+
+def _digits(sorted_keys: torch.Tensor, offset: int, width: int) -> torch.Tensor:
+    return (to_int64(sorted_keys) >> offset) & ((1 << width) - 1)
+
+
+def _group_starts(sorted_keys: torch.Tensor, offset: int, width: int) -> torch.Tensor:
+    d = _digits(sorted_keys, offset, width)
+    queries = torch.arange((1 << width) + 1, dtype=torch.int64, device=d.device)
+    return torch.searchsorted(d, queries, side="left")
+
+
+def true_group_starts(
+    sorted_keys: torch.Tensor, offset: int, width: int
+) -> torch.Tensor:
+    """s[g] = first index where group g would start, for g in 0..2^width
+    (s[2^width] = n), as uint32."""
+    validate_digit_range(offset, width)
+    return from_int64(_group_starts(sorted_keys, offset, width))
+
+
+def compute_boundaries(
+    sorted_keys: torch.Tensor, offset: int, width: int
+) -> torch.Tensor:
+    """Reference-contract boundaries of each digit group (uint32[2^width]).
+
+    Input must already be sorted by bits [offset, offset+width).  As in the
+    reference:
+
+      * groups in [2, d[0]] report the start of the group after d[0]
+        (element 0's group is never marked, and the backfill overwrites);
+      * an empty group 1 reports 0 instead of its true start;
+      * all other groups report their true start.
+    """
+    validate_digit_range(offset, width)
+    nb = 1 << width
+    device = sorted_keys.device
+    if sorted_keys.numel() == 0:
+        return from_int64(torch.zeros(nb, dtype=torch.int64, device=device))
+    s = _group_starts(sorted_keys, offset, width)
+    g = torch.arange(nb, dtype=torch.int64, device=device)
+    g0 = _digits(sorted_keys[:1], offset, width)[0]
+    b = torch.where((g >= 2) & (g <= g0), s[g0 + 1], s[:nb])
+    group1_empty = s[2] <= s[1]
+    b = torch.where((g == 1) & group1_empty, torch.zeros_like(b), b)
+    return from_int64(b)
