@@ -5,14 +5,20 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels of gpu_radix_sort_tpu_torch/csrc with nvcc;
-3. holds block_sort and merge_level against their plain PyTorch versions,
-   byte for byte, at small shapes and at the shapes of the main path;
-4. drives the main path -- sort_full of 64M PCG32 keys -- with the launch
-   counts set to 0 just before and read just after, exact against np.sort;
-   then a ragged n, the one-block route, int32/float32 keys and
+3. holds block_sort, merge_level, digit_sort and binning against their plain
+   PyTorch versions, byte for byte, at small shapes and at the shapes of the
+   main paths;
+4. drives the first main path -- sort_full of 64M PCG32 keys -- with the
+   launch counts set to 0 just before and read just after, exact against
+   np.sort; then a ragged n, the one-block route, int32/float32 keys and
    sort_partial(stable=False) against the reference's boundary contract;
-5. times sort_full, torch.sort, the tile pass, one merge level and the
-   one-block route by the CUDA-event median.
+5. drives the second main path -- the stable sort_partial of 256Mi PCG32
+   keys at widths 4, 8 and 16 -- the same way, exact against the numpy
+   stable oracle, its boundaries and its counts; then the kv digit sort
+   with an arange column and the one-block digit-sort route;
+6. times each path, its torch.sort yardstick, each kernel and its plain
+   version by the CUDA-event median, and profiles the partial sorts by
+   kernel (torch.profiler).
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -29,7 +35,14 @@ import time
 import numpy as np
 import torch
 
-N_MAIN = 1 << 26  # 64M keys, 256 MiB: the main path's size
+N_MAIN = 1 << 26  # 64M keys, 256 MiB: the sort_full path's size
+N_PART = 1 << 28  # 256Mi keys, 1 GiB: the stable partial sorts' size
+PART_WIDTHS = (4, 8, 16)
+
+# Published peaks of one H100 SXM: HBM bytes/s, and 32-bit operations/s
+# outside the tensor cores (the float32 row of the data sheet).
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -48,6 +61,52 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def network_stages(size: int) -> int:
+    """Compare-exchange stages of a bitonic network over size keys."""
+    log = size.bit_length() - 1
+    return log * (log + 1) // 2
+
+
+def device_profile(fn, reps: int = 3):
+    """Device time by kernel name (ms a call) and the device's idle share
+    between the first and the last kernel, from torch.profiler over ``reps``
+    calls; None where the profiler saw no device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        return None
+    by_name: dict[str, float] = {}
+    busy, cur_start, cur_end = 0, spans[0][0], spans[0][1]
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3 / reps
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    window = spans[-1][1] - spans[0][0]
+    return by_name, 1.0 - busy / window if window else 0.0
+
+
 def total_order_np(a: np.ndarray) -> np.ndarray:
     """numpy IEEE-754 totalOrder bits of float32 keys (independent of the
     port's torch codec)."""
@@ -61,10 +120,12 @@ def main() -> int:
         return 1
 
     from gpu_radix_sort_tpu_torch.kernels import build
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
-    from gpu_radix_sort_tpu_torch.ops.bits import to_int64
+    from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits, to_int64
     from gpu_radix_sort_tpu_torch.utils import checks, keygen, timers
 
     dev = torch.device("cuda", 0)
@@ -143,20 +204,67 @@ def main() -> int:
         f"(L in {merge_ls} at n in {small_n}; L in {(TILE, 1 << 20, N_MAIN // 2)} "
         f"at n={N_MAIN})")
 
-    # -- the main path -------------------------------------------------------
+    # -- digit_sort against its plain version --------------------------------
+    err_digit, cases = 0, 0
+    digit_ns = (1, 1000, ds.MAX_N_KV - 1, ds.MAX_N_KV)
+    digit_widths = (1, 4, 8, 16, 17)
+    for n in digit_ns:
+        for w in digit_widths:
+            for offset in sorted({0, (11 * w) % (33 - w), 32 - w}):
+                for name, a in inputs(n):
+                    x = on_card(a)
+                    err_digit = max(err_digit, compare(
+                        ds.sort_by_digits_small(x, offset, w),
+                        ds.sort_by_digits_small_plain(x, offset, w),
+                        f"digit_sort n={n} offset={offset} width={w} {name}",
+                    ))
+                    cases += 1
+    log(f"digit_sort: {cases} cases equal to the plain version byte for byte "
+        f"(n in {digit_ns}; widths {digit_widths} at three offsets; "
+        f"random/equal/all-max)")
+
+    # -- binning against its plain version, on the same stage-A output -------
+    def bin_compare(x, cols, offset, w, tile, what):
+        sk, scols, g_run, sflat = bn.stage_a(x, cols, offset, w, tile)
+        err = 0
+        for src in (sk, *scols):
+            err = max(err, compare(
+                bn.bin_runs(sk, src, g_run, sflat, tile, offset, w),
+                bn.bin_runs_plain(sk, src, g_run, sflat, tile, offset, w), what,
+            ))
+        return err
+
+    err_bin, cases = 0, 0
+    bin_ns = (1, 7, 1000, bn.TILE - 1, bn.TILE, bn.TILE + 1, 100003)
+    bin_windows = ((0, 4), (28, 4), (5, 3), (8, 8))
+    for n in bin_ns:
+        col = on_card(np.arange(n, dtype=np.uint32))
+        for offset, w in bin_windows:
+            for name, a in inputs(n):
+                err_bin = max(err_bin, bin_compare(
+                    on_card(a), (col,), offset, w, bn.auto_geometry(n),
+                    f"binning n={n} offset={offset} width={w} {name}",
+                ))
+                cases += 1
+    log(f"binning: {cases} cases, keys and one column each, equal to the plain "
+        f"version byte for byte (n in {bin_ns}; windows {bin_windows}; "
+        f"random/equal/all-max)")
+
+    # -- the sort_full path ----------------------------------------------------
     keygen.reset_global_stream()
     keys_np = keygen.generate_keys(N_MAIN)
     keys = on_card(keys_np)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    bs.launches = 0
-    ms.launches = 0
+    bs.launches = ms.launches = ds.launches = bn.launches = 0
     t0 = time.perf_counter()
     out = rs.sort_full(keys)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = {"block_sort": bs.launches, "merge_level": ms.launches}
+    if ds.launches or bn.launches:
+        fail(f"sort_full launched digit_sort {ds.launches}, binning {bn.launches}")
     peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
     levels = (N_MAIN // TILE - 1).bit_length()
     log(f"main path: sort_full of {N_MAIN} PCG32 keys, launches {launches} "
@@ -205,12 +313,14 @@ def main() -> int:
         f"int32 and float32 at {n_typed} exact; sort_partial(8, 8, stable=False) "
         f"at {n_part} meets the group and boundary contract")
 
-    # -- times -----------------------------------------------------------------
+    # -- times of the sort_full path ------------------------------------------
     ms_sort = timers.time_cuda(lambda: rs.sort_full(keys))
     ms_torch = timers.time_cuda(lambda: rs.sort_full(keys, strategy="torch"))
     ms_block = timers.time_cuda(lambda: bs.block_sort(keys, TILE, alternate=True))
     ms_block_plain = timers.time_cuda(
         lambda: bs.block_sort_plain(keys, TILE, alternate=True))
+    rows = keys.view(torch.int32).view(-1, TILE)
+    ms_block_lib = timers.time_cuda(lambda: torch.sort(rows, dim=1))
     runs = bs.block_sort(keys, TILE, alternate=True)
     ms_merge = timers.time_cuda(lambda: ms.merge_level(runs, TILE))
     ms_merge_plain = timers.time_cuda(lambda: ms.merge_level_plain(runs, TILE))
@@ -225,28 +335,183 @@ def main() -> int:
     log(f"time [{card}]: torch.sort (strategy='torch') {ms_torch:.3f} ms "
         f"({rate(ms_torch):.4g} keys/s)")
     log(f"time [{card}]: block_sort pass (tile {TILE}) {ms_block:.3f} ms; "
-        f"plain {ms_block_plain:.3f} ms")
+        f"plain {ms_block_plain:.3f} ms; torch.sort of the rows {ms_block_lib:.3f} ms")
     log(f"time [{card}]: merge_level L={TILE} {ms_merge:.3f} ms; plain "
         f"{ms_merge_plain:.3f} ms; L={N_MAIN // 2} {ms_merge_top:.3f} ms "
         f"({2 * 4 * N_MAIN / (ms_merge * 1e-3) / 1e9:.4g} GB/s moved at L={TILE})")
     log(f"time [{card}]: one-block sort_full of {TILE} keys {ms_single:.4f} ms; "
         f"plain {ms_single_plain:.4f} ms")
+    block_bound = bound(8 * N_MAIN, N_MAIN // 2 * network_stages(TILE))
+    merge_bound = bound(8 * N_MAIN, N_MAIN)
+    del keys, keys_np, big, out, runs, top, rows, one_block, ints, floats, got, s, b
+    torch.cuda.empty_cache()
+
+    # -- the stable partial-sort path ------------------------------------------
+    keygen.reset_global_stream()
+    t0 = time.perf_counter()
+    part_np = keygen.generate_keys(N_PART)
+    part = on_card(part_np)
+    torch.cuda.synchronize()
+    log(f"partial path: {N_PART} PCG32 keys made and moved to the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    held = torch.cuda.memory_allocated()
+    part_launches, peak_part = {}, 0.0
+    for w in PART_WIDTHS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bs.launches = ms.launches = ds.launches = bn.launches = 0
+        t0 = time.perf_counter()
+        s_dev, b_dev = rs.sort_partial(part, 0, w)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        got = {"block_sort": bs.launches, "merge_level": ms.launches,
+               "digit_sort": ds.launches, "binning": bn.launches}
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        peak_part = max(peak_part, peak)
+        passes = -(-w // bn.PASS_WIDTH)
+        want_launches = {"block_sort": 0, "merge_level": 0, "digit_sort": 0,
+                         "binning": passes}
+        if got != want_launches:
+            fail(f"sort_partial(0, {w}) launches {got}, expected {want_launches}")
+        part_launches[w] = got["binning"]
+        want = checks.partial_sort_oracle(part_np, 0, w)
+        if not np.array_equal(s_dev.cpu().numpy(), want):
+            fail(f"stable sort_partial(0, {w}) of {N_PART} keys differs from the "
+                 f"numpy stable oracle")
+        if not np.array_equal(b_dev.cpu().numpy(), checks.boundaries_oracle(want, 0, w)):
+            fail(f"sort_partial(0, {w}) boundaries differ from boundaries_oracle")
+        del s_dev, b_dev
+        _, c_dev = rs.sort_partial_counts(part, 0, w)
+        if not np.array_equal(c_dev.cpu().numpy().astype(np.int64),
+                              checks.true_bucket_counts(part_np, 0, w)):
+            fail(f"sort_partial_counts(0, {w}) differs from true_bucket_counts")
+        del c_dev, want
+        log(f"partial path: stable sort_partial(0, {w}) of {N_PART} keys exact "
+            f"(keys, boundaries, counts); launches {got}; first call "
+            f"{first_ms:.1f} ms by host clock; peak device memory {peak:.0f} MiB "
+            f"above the {N_PART * 4 / 2**20:.0f} MiB of keys")
+
+    vals = torch.arange(N_PART, dtype=torch.int32, device=dev).view(torch.uint32)
+    bs.launches = ms.launches = ds.launches = bn.launches = 0
+    sk, sv = rs.sort_key_value_by_digits(part, vals, 8, 4)
+    torch.cuda.synchronize()
+    kv_launches = bn.launches
+    if (bs.launches, ms.launches, ds.launches, kv_launches) != (0, 0, 0, 2):
+        fail(f"kv digit sort launched block_sort {bs.launches}, merge_level "
+             f"{ms.launches}, digit_sort {ds.launches}, binning {kv_launches}; "
+             f"expected binning 2 (keys and the column) and no other")
+    order = np.argsort(checks.extract_digits(part_np, 8, 4).astype(np.uint8),
+                       kind="stable")
+    if not np.array_equal(sv.cpu().numpy(), order.astype(np.uint32)):
+        fail("kv digit sort: values differ from np.argsort(digits, kind='stable')")
+    if not np.array_equal(sk.cpu().numpy(), part_np[order]):
+        fail("kv digit sort: keys differ from the numpy stable oracle")
+    del sk, sv, order
+    log(f"partial path: kv sort_key_value_by_digits(8, 4) of {N_PART} keys with "
+        f"an arange column exact; binning launches {kv_launches}")
+
+    n_small = ds.MAX_N_KV - 3
+    bs.launches = ms.launches = ds.launches = bn.launches = 0
+    s_small, b_small = rs.sort_partial(part[:n_small], 0, 8)
+    torch.cuda.synchronize()
+    small_launches = ds.launches
+    if (bs.launches, ms.launches, ds.launches, bn.launches) != (0, 0, 1, 0):
+        fail(f"sort_partial of {n_small} keys launched block_sort {bs.launches}, "
+             f"merge_level {ms.launches}, digit_sort {ds.launches}, binning "
+             f"{bn.launches}; expected digit_sort 1 and no other")
+    s_small = s_small.cpu().numpy()
+    if not checks.check_partial(s_small, part_np[:n_small], 0, 8):
+        fail(f"stable sort_partial of {n_small} keys differs from the oracle")
+    if not np.array_equal(b_small.cpu().numpy(), checks.boundaries_oracle(s_small, 0, 8)):
+        fail(f"sort_partial of {n_small} keys: boundaries differ")
+    log(f"partial path: one-block route, sort_partial(0, 8) of {n_small} keys "
+        f"exact; digit_sort launches {small_launches}")
+
+    err_bin = max(err_bin, bin_compare(part, (vals,), 0, 4, bn.TILE,
+                                       f"binning n={N_PART} width 4"))
+    log(f"binning: n={N_PART} at width 4, keys and one column, equal to the "
+        f"plain version byte for byte")
+
+    # -- times of the partial-sort path ----------------------------------------
+    ms_part, ms_part_torch, ms_digits = {}, {}, {}
+    for w in PART_WIDTHS:
+        ms_part[w] = timers.time_cuda(lambda: rs.sort_partial(part, 0, w))
+        ms_digits[w] = timers.time_cuda(lambda: rs.sort_by_digits(part, 0, w))
+        ms_part_torch[w] = timers.time_cuda(
+            lambda: rs.sort_partial(part, 0, w, strategy="torch"))
+        log(f"time [{card}]: stable sort_partial(0, {w}) {N_PART} keys "
+            f"{ms_part[w]:.3f} ms ({N_PART / (ms_part[w] * 1e-3):.4g} keys/s; "
+            f"sort_by_digits alone {ms_digits[w]:.3f} ms); strategy='torch' "
+            f"{ms_part_torch[w]:.3f} ms; bound "
+            f"{bound(8 * N_PART * -(-w // bn.PASS_WIDTH), 0)[0]:.3f} ms")
+    ms_kv = timers.time_cuda(lambda: rs.sort_key_value_by_digits(part, vals, 8, 4))
+    ms_kv_torch = timers.time_cuda(
+        lambda: rs.sort_key_value_by_digits(part, vals, 8, 4, strategy="torch"))
+    log(f"time [{card}]: kv sort_key_value_by_digits(8, 4) {N_PART} pairs "
+        f"{ms_kv:.3f} ms; strategy='torch' {ms_kv_torch:.3f} ms; bound "
+        f"{bound(16 * N_PART, 0)[0]:.3f} ms")
+    ms_stage_a = timers.time_cuda(lambda: bn.stage_a(part, (), 0, 4, bn.TILE))
+    sk, _, g_run, sflat = bn.stage_a(part, (), 0, 4, bn.TILE)
+    ms_bin = timers.time_cuda(lambda: bn.bin_runs(sk, sk, g_run, sflat, bn.TILE, 0, 4))
+    ms_bin_plain = timers.time_cuda(
+        lambda: bn.bin_runs_plain(sk, sk, g_run, sflat, bn.TILE, 0, 4))
+    bin_bound = bound(8 * N_PART + 16 * g_run.numel(), N_PART)
+    log(f"time [{card}]: one 4-bit pass at {N_PART} keys: stage A (row "
+        f"torch.sort, gather, searchsorted, metadata) {ms_stage_a:.3f} ms; binning "
+        f"kernel {ms_bin:.3f} ms ({8 * N_PART / (ms_bin * 1e-3) / 1e9:.4g} GB/s "
+        f"moved; bound {bin_bound[0]:.3f} ms); plain {ms_bin_plain:.3f} ms")
+    del sk, g_run, sflat
+    x_small = part[:ds.MAX_N_KV]
+    d_small = sortable_digits(x_small, 0, 8)
+    ms_ds = timers.time_cuda(lambda: ds.sort_by_digits_small(x_small, 0, 8))
+    ms_ds_plain = timers.time_cuda(lambda: ds.sort_by_digits_small_plain(x_small, 0, 8))
+    ms_ds_lib = timers.time_cuda(lambda: torch.sort(d_small, stable=True))
+    digit_bound = bound(8 * ds.MAX_N_KV, ds.MAX_N_KV // 2 * network_stages(ds.MAX_N_KV))
+    log(f"time [{card}]: digit_sort of {ds.MAX_N_KV} keys by 8 bits "
+        f"{ms_ds:.4f} ms; plain {ms_ds_plain:.4f} ms; stable torch.sort of the "
+        f"digits {ms_ds_lib:.4f} ms")
+    log(f"memory [{card}]: stable sort_partial at {N_PART} keys peaks at "
+        f"{peak_part:.0f} MiB above the {N_PART * 4 / 2**20:.0f} MiB of keys")
+
+    for w in (4, 16):
+        prof = device_profile(lambda: rs.sort_partial(part, 0, w))
+        if prof is None:
+            log(f"profile [{card}]: sort_partial(0, {w}): the profiler saw no "
+                f"device work (not measured)")
+            continue
+        by_name, idle = prof
+        total = sum(by_name.values())
+        log(f"profile [{card}]: sort_partial(0, {w}) of {N_PART} keys: device "
+            f"{total:.3f} ms a call over 3 calls, idle share {idle:.4f}; top:")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
+
+    def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"gpu_radix_sort_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n_launches, "max_abs_err": err,
+                "ms": t, "plain_ms": t_plain, "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": t_lib, **extra}
 
     print(json.dumps({"kernels": [
-        {"name": "block_sort", "route": "cuda",
-         "source": "gpu_radix_sort_tpu_torch/csrc/block_sort.cu",
-         "replaces": "gpu_radix_sort_tpu/ops/pallas_merge.py:131",
-         "also_replaces": "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
-         "launches": launches["block_sort"], "max_abs_err": err_block,
-         "ms": ms_block, "plain_ms": ms_block_plain,
-         "one_block_ms": ms_single, "one_block_plain_ms": ms_single_plain},
-        {"name": "merge_level", "route": "cuda",
-         "source": "gpu_radix_sort_tpu_torch/csrc/merge_path.cu",
-         "replaces": "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
-         "launches": launches["merge_level"], "max_abs_err": err_merge,
-         "ms": ms_merge, "plain_ms": ms_merge_plain},
+        kernel("block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:131",
+               launches["block_sort"], err_block, ms_block, ms_block_plain,
+               block_bound, ms_block_lib,
+               also_replaces="gpu_radix_sort_tpu/ops/pallas_sort.py:180",
+               one_block_ms=ms_single, one_block_plain_ms=ms_single_plain),
+        kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
+               launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
+               merge_bound, None),
+        kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
+               small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib),
+        kernel("binning", "binning.cu", "gpu_radix_sort_tpu/ops/pallas_radix.py:205",
+               sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
+               bin_bound, None, launches_by_width=part_launches,
+               kv_launches=kv_launches, stage_a_ms=ms_stage_a),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
-        "card": card}))
+        "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
+        "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
+        "n_partial": N_PART, "peak_mib_partial": peak_part, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,15 +7,17 @@ first use); on a CPU tensor through those kernels' plain PyTorch versions.
 This package imports neither jax nor the JAX package.
 """
 
-from .models.pipelines import FullSortPipeline
+from .models.pipelines import FullSortPipeline, PartialSortPipeline
 from .ops.bits import extract_digits
-from .ops.boundaries import compute_boundaries
+from .ops.boundaries import compute_boundaries, counts_to_boundaries, digit_counts
 from .ops.radix_sort import (
     get_default_strategy,
     set_default_strategy,
     sort_by_digits,
     sort_full,
+    sort_key_value_by_digits,
     sort_partial,
+    sort_partial_counts,
 )
 from .utils.keygen import Pcg32, generate_keys, reset_global_stream
 
@@ -24,14 +26,19 @@ __version__ = "0.1.0"
 __all__ = [
     "sort_full",
     "sort_partial",
+    "sort_partial_counts",
     "sort_by_digits",
+    "sort_key_value_by_digits",
     "set_default_strategy",
     "get_default_strategy",
     "compute_boundaries",
+    "digit_counts",
+    "counts_to_boundaries",
     "extract_digits",
     "Pcg32",
     "generate_keys",
     "reset_global_stream",
     "FullSortPipeline",
+    "PartialSortPipeline",
     "__version__",
 ]

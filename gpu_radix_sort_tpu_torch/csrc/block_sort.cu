@@ -1,12 +1,15 @@
 // Bitonic sort of one tile of uint32 keys per CUDA block, in shared memory.
 //
-// Replaces two Pallas kernels of the JAX package:
+// Replaces three Pallas kernels of the JAX package:
 //   * gpu_radix_sort_tpu/ops/pallas_merge.py:131 `_tile_sort_kernel` (B1): a
 //     grid over tiles, odd tiles sorted descending under `alternate`, so that
 //     the merge levels see [ascending; descending] pairs;
 //   * gpu_radix_sort_tpu/ops/pallas_sort.py:180 `_sort_kernel` (B3): the whole
 //     array in one program, padded to a power of two with 0xFFFFFFFF.  Here
-//     that is a grid of one block with `alternate` off.
+//     that is a grid of one block with `alternate` off;
+//   * gpu_radix_sort_tpu/ops/pallas_sort.py:185 `_sort_kv_kernel` (B4): the
+//     stable digit sort of n <= 2^14 keys in one block (`digit_sort_kernel`
+//     below), the same network carrying a payload.
 //
 // Tile size.  A TPU tile was 2^17 keys (512 KiB of VMEM); a Hopper block has
 // at most 227 KB of shared memory.  The tile is at most 2^14 keys = 64 KB, so
@@ -36,6 +39,36 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kMaxTile = 1 << 14;
 
+// The bitonic network over s[0, size), size a power of two, ascending.  With
+// kPayload, v[i] moves with s[i].  A compare-exchange swaps only when the
+// pair is out of order, so with unique keys the payload order is exact.
+template <bool kPayload>
+__device__ void bitonic_network(uint32_t* s, uint32_t* v, int size) {
+  const int half = size >> 1;
+  for (int k = 2; k <= size; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < half; i += kThreads) {
+        // i-th pair of this stage: lo has bit j clear, hi = lo | j.
+        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
+        const int hi = lo | j;
+        const uint32_t a = s[lo];
+        const uint32_t b = s[hi];
+        const bool ascending = (lo & k) == 0;
+        if ((a > b) == ascending) {
+          s[lo] = b;
+          s[hi] = a;
+          if (kPayload) {
+            const uint32_t t = v[lo];
+            v[lo] = v[hi];
+            v[hi] = t;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 block_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
                   long long n, int tile, int alternate) {
@@ -49,27 +82,42 @@ block_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
   __syncthreads();
 
-  const int half = tile >> 1;
-  for (int k = 2; k <= tile; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < half; i += kThreads) {
-        // i-th pair of this stage: lo has bit j clear, hi = lo | j.
-        const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
-        const int hi = lo | j;
-        const uint32_t a = s[lo];
-        const uint32_t b = s[hi];
-        const bool ascending = (lo & k) == 0;
-        if ((a > b) == ascending) {
-          s[lo] = b;
-          s[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_network<false>(s, nullptr, tile);
 
   for (int i = threadIdx.x; i < m; i += kThreads) {
     out[start + i] = s[i] ^ flip;
+  }
+}
+
+// B4.  Key i gets the composite digit << pos_bits | i: the composites are
+// unique, so the unstable network sorts them stably by digit, and the key
+// rides as payload.  width + pos_bits < 32 keeps every composite below the
+// 0xFFFFFFFF pads of slots [n, size).  Only the keys are written.  Bound:
+// one block on one SM running up to 105 barrier stages, so it is bound by
+// barrier latency and launch time, far above its 8 bytes a key of device
+// memory traffic; it is the route for small n only.
+__global__ void __launch_bounds__(kThreads)
+digit_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                  int n, int size, int offset, uint32_t mask, int pos_bits) {
+  extern __shared__ uint32_t s[];
+  uint32_t* v = s + size;
+
+  for (int i = threadIdx.x; i < size; i += kThreads) {
+    if (i < n) {
+      const uint32_t key = x[i];
+      s[i] = (((key >> offset) & mask) << pos_bits) | (uint32_t)i;
+      v[i] = key;
+    } else {
+      s[i] = 0xFFFFFFFFu;
+      v[i] = 0u;
+    }
+  }
+  __syncthreads();
+
+  bitonic_network<true>(s, v, size);
+
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    out[i] = v[i];
   }
 }
 
@@ -91,6 +139,31 @@ extern "C" int grs_block_sort_u32(const uint32_t* x, uint32_t* out,
   const long long grid = (n + tile - 1) / tile;
   block_sort_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       x, out, n, tile, alternate);
+  return (int)cudaGetLastError();
+}
+
+// Stable sort of x[0, n) by bits [offset, offset + width) into out, in one
+// block: n <= 2^14 (composite and key, 8 bytes a slot, fill 128 KB of shared
+// memory at 2^14) and width + log2(next_pow2(n)) < 32.  Launches on
+// `stream`; returns cudaGetLastError().  `out` must not alias `x`.
+extern "C" int grs_digit_sort_u32(const uint32_t* x, uint32_t* out,
+                                  long long n, int offset, int width,
+                                  cudaStream_t stream) {
+  if (n <= 0 || n > kMaxTile || width < 1 || offset < 0 ||
+      offset + width > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int pos_bits = 0;
+  while ((1LL << pos_bits) < n) ++pos_bits;
+  if (width + pos_bits >= 32) return (int)cudaErrorInvalidValue;
+  const int size = 1 << pos_bits;
+  const uint32_t mask = width == 32 ? 0xFFFFFFFFu : (1u << width) - 1u;
+  const int smem = 2 * size * (int)sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      digit_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  digit_sort_kernel<<<1, kThreads, smem, stream>>>(
+      x, out, (int)n, size, offset, mask, pos_bits);
   return (int)cudaGetLastError();
 }
 

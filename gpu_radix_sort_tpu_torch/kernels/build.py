@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 The counterpart of ``gpu_radix_sort_tpu/utils/native.py``'s build at first
-use.  All of ``csrc/*.cu`` goes through one ``nvcc`` call into a shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), placed in ``gpu_radix_sort_tpu_torch/_build/`` under a name that
-hashes the sources and flags: an edited source builds anew, an unchanged one
-loads the library already built.
+use.  Each of ``csrc/*.cu`` goes through its own ``nvcc -c``, all started
+together, and one more ``nvcc`` links the objects into a shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds),
+placed in ``gpu_radix_sort_tpu_torch/_build/`` under a name that hashes the
+sources and flags: an edited source builds anew, an unchanged one loads the
+library already built.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.  A failed
@@ -27,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -37,6 +38,12 @@ _SIGNATURES = {
                            ctypes.c_int, _P),
     # (x, out, n, L, stream)
     "grs_merge_level_u32": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
+    # (x, out, n, offset, width, stream)
+    "grs_digit_sort_u32": (_P, _P, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, _P),
+    # (keys, src, out, n, tile, offset, width, g_run, sflat, stream)
+    "grs_binning_u32": (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_int, _P, _P, _P),
 }
 
 
@@ -65,20 +72,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgrs_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
+    """Wait for every process; raise with the stderr of the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed is not None:
+        cmd, rc, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{err}")
+
+
+def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
+    return cmd, subprocess.Popen(
+        cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True
+    )
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` a source, in parallel, then one link."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    nvcc, tag = _nvcc(), f"{lib.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    try:
+        _run([
+            _start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+            for src, obj in zip(_sources(), objects)
+        ])
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objects)])])
+        os.replace(tmp, lib)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return lib
 
 

@@ -18,6 +18,21 @@ KEY_BITS = 32
 _INT32_MIN = -(1 << 31)
 
 
+def as_tensor(x) -> torch.Tensor:
+    """The tensor an entry point works on.  A tensor stays where it lies; any
+    other input (a numpy array, a list) goes to the CUDA device, as the JAX
+    package puts a host array on its default device.  With no CUDA device
+    that raises: pass a CPU tensor to sort on the CPU."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "host input goes to the CUDA device and none is available; "
+            "pass a CPU torch.Tensor to sort on the CPU"
+        )
+    return torch.as_tensor(x, device="cuda")
+
+
 def validate_digit_range(offset: int, width: int) -> None:
     if not (0 < width <= KEY_BITS and 0 <= offset and offset + width <= KEY_BITS):
         raise ValueError(
@@ -44,7 +59,26 @@ def from_int64(y: torch.Tensor) -> torch.Tensor:
 def extract_digits(keys: torch.Tensor, offset: int, width: int) -> torch.Tensor:
     """bits [offset, offset+width) of each key, as uint32."""
     validate_digit_range(offset, width)
-    return from_int64((to_int64(keys) >> offset) & digit_mask(width))
+    return from_int64((to_int64(as_tensor(keys)) >> offset) & digit_mask(width))
+
+
+def sortable_digits(
+    keys: torch.Tensor, offset: int, width: int, *, top: int | None = None
+) -> torch.Tensor:
+    """Digits of uint32 keys in the narrowest type that every device sorts
+    and searches in the same order: uint8, int16 or int32 by the largest
+    value ``top`` it must hold (default the largest digit); width 32 is the
+    sign-flipped int32 view of the keys."""
+    validate_digit_range(offset, width)
+    x = keys.view(torch.int32)
+    if width == KEY_BITS:
+        return x ^ _INT32_MIN
+    # arithmetic shift: the sign bits it brings in lie above the mask
+    d = (x >> offset) & digit_mask(width)
+    top = digit_mask(width) if top is None else top
+    if top <= 0xFF:
+        return d.to(torch.uint8)
+    return d.to(torch.int16) if top <= 0x7FFF else d
 
 
 def rotr32(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Correctness oracles (numpy only), ported from
 ``gpu_radix_sort_tpu/utils/checks.py``.
 
+  * ``check_sorted`` — monotone nondecreasing.
   * ``check_sort_full`` — exact match against ``np.sort``.
   * ``check_partial`` — exact match against the stable partial-sort oracle.
   * ``check_partial_groups`` — the reference's own partial-sort contract
@@ -8,6 +9,9 @@
     ``sort_partial(..., stable=False)`` meets.
   * ``boundaries_oracle`` — the exact group-boundary contract of the
     reference's SortState::GetBoundaries (sort.cu:367-394), quirks included.
+  * ``true_bucket_counts`` / ``bucket_counts_from_boundaries`` — exact
+    per-digit counts, and the bucket sizes the reference derives from its
+    boundaries.
 """
 
 from __future__ import annotations
@@ -23,6 +27,12 @@ def extract_digits(keys: np.ndarray, offset: int, width: int) -> np.ndarray:
     return (keys.astype(np.uint32) >> np.uint32(offset)) & mask
 
 
+def check_sorted(keys: np.ndarray) -> bool:
+    """Monotone nondecreasing."""
+    keys = np.asarray(keys)
+    return bool(np.all(keys[:-1] <= keys[1:])) if keys.size > 1 else True
+
+
 def check_sort_full(result: np.ndarray, original: np.ndarray) -> bool:
     """Exact bitwise match against the CPU oracle sort."""
     result = np.asarray(result, dtype=np.uint32)
@@ -34,10 +44,17 @@ def partial_sort_oracle(
     original: np.ndarray, offset: int, width: int
 ) -> np.ndarray:
     """Expected output of a stable partial sort by bits
-    [offset, offset+width)."""
+    [offset, offset+width).  The digits are cast to the narrowest unsigned
+    type first, so that numpy's stable argsort takes its radix path (seconds
+    at 256Mi keys, where the timsort of uint32 takes tens of seconds); the
+    order is the same."""
     original = np.asarray(original, dtype=np.uint32)
-    order = np.argsort(extract_digits(original, offset, width), kind="stable")
-    return original[order]
+    digits = extract_digits(original, offset, width)
+    if width <= 8:
+        digits = digits.astype(np.uint8)
+    elif width <= 16:
+        digits = digits.astype(np.uint16)
+    return original[np.argsort(digits, kind="stable")]
 
 
 def check_partial(
@@ -87,3 +104,20 @@ def boundaries_oracle(
             b[g] = prev
         prev = b[g]
     return b
+
+
+def true_bucket_counts(keys: np.ndarray, offset: int, width: int) -> np.ndarray:
+    """Exact per-digit counts (histogram)."""
+    d = extract_digits(np.asarray(keys, dtype=np.uint32), offset, width)
+    return np.bincount(d, minlength=1 << width).astype(np.int64)
+
+
+def bucket_counts_from_boundaries(boundaries: np.ndarray, n: int) -> np.ndarray:
+    """Bucket sizes the reference derives from boundaries
+    (benchmark/pkg/sort/distrib.go:45-53): sizes[i] = b[i+1] - b[i], the
+    last n - b[last]."""
+    b = np.asarray(boundaries, dtype=np.int64)
+    sizes = np.empty_like(b)
+    sizes[:-1] = b[1:] - b[:-1]
+    sizes[-1] = n - b[-1]
+    return sizes

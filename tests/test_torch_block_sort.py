@@ -93,7 +93,8 @@ def test_c_entry_points_match_the_ctypes_signatures():
     """The ctypes argtypes must list as many arguments as the C entry point
     takes: a pointer passed without c_void_p would be cut to 32 bits."""
     sources = "".join(p.read_text() for p in build._sources())
-    assert {p.name for p in build._sources()} == {"block_sort.cu", "merge_path.cu"}
+    assert {p.name for p in build._sources()} == {
+        "binning.cu", "block_sort.cu", "merge_path.cu"}
     for name, argtypes in build._SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", sources)
         assert m, name
@@ -104,3 +105,33 @@ def test_c_entry_points_match_the_ctypes_signatures():
             assert is_pointer == (argtype is build.ctypes.c_void_p), (name, param)
     assert "-gencode" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def _fake_nvcc(path, *, fail_on=""):
+    """A stand-in for nvcc that writes its -o target (or fails on a source
+    whose name contains ``fail_on``)."""
+    path.write_text(
+        "#!/bin/sh\n"
+        f'case "$*" in *{fail_on or "@never@"}*) echo "error in $*" >&2; exit 2;; esac\n'
+        'while [ $# -gt 0 ]; do if [ "$1" = -o ]; then echo built > "$2"; fi; shift; done\n'
+    )
+    path.chmod(0o755)
+    return str(path)
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc -c a source, then one link; the objects go away."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_nvcc", lambda: _fake_nvcc(tmp_path / "nvcc"))
+    lib = build.build()
+    assert lib == build.library_path() and lib.read_text() == "built\n"
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == [lib.name]
+    assert build.build() == lib  # built already: nothing runs
+
+
+def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_nvcc", lambda: _fake_nvcc(tmp_path / "nvcc", fail_on="binning.cu"))
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*error in"):
+        build.build()
+    assert list((tmp_path / "_build").iterdir()) == []

@@ -99,7 +99,7 @@ def test_validate_digit_range_rejects_like_jax(offset, width):
         bits.validate_digit_range(offset, width)
 
 
-@pytest.mark.parametrize("offset,width", [(0, 4), (8, 8), (28, 4), (0, 1)])
+@pytest.mark.parametrize("offset,width", [(0, 4), (8, 8), (28, 4), (0, 1), (3, 12), (16, 16)])
 def test_oracles_match_jax(offset, width):
     keys = keygen.Pcg32(state=99).fill(3000)
     keys[:50] = 0xFFFFFFFF
@@ -119,3 +119,11 @@ def test_oracles_match_jax(offset, width):
             jchecks.check_partial(result, keys, offset, width)
         assert checks.check_partial_groups(result, keys, offset, width) == \
             jchecks.check_partial_groups(result, keys, offset, width)
+        assert checks.check_sorted(result) == jchecks.check_sorted(result)
+    counts = checks.true_bucket_counts(keys, offset, width)
+    np.testing.assert_array_equal(counts, jchecks.true_bucket_counts(keys, offset, width))
+    b = checks.boundaries_oracle(digit_sorted, offset, width)
+    np.testing.assert_array_equal(
+        checks.bucket_counts_from_boundaries(b, keys.size),
+        jchecks.bucket_counts_from_boundaries(b, keys.size),
+    )

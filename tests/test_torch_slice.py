@@ -1,8 +1,10 @@
-"""Slice one of the PyTorch port as a whole vs the JAX package: sort_full
-(uint32, int32, float32), sort_partial(stable=False), compute_boundaries,
-routing, the pipeline and the CLI; plus the rule that the port imports
-neither jax nor the JAX package.  Same inputs to both sides; outputs must
-be equal bytes."""
+"""Slices one and two of the PyTorch port as a whole vs the JAX package:
+sort_full (uint32, int32, float32), the stable and unstable sort_partial,
+sort_partial_counts, sort_key_value_by_digits, compute_boundaries,
+digit_counts, counts_to_boundaries, routing, the pipelines and the CLI;
+plus the rules that host input never sorts on the CPU and that the port
+imports neither jax nor the JAX package.  Same inputs to both sides;
+outputs must be equal bytes."""
 
 import ast
 from pathlib import Path
@@ -15,13 +17,18 @@ import torch
 import gpu_radix_sort_tpu_torch as port
 from gpu_radix_sort_tpu.cli import main as jax_cli
 from gpu_radix_sort_tpu.models.pipelines import FullSortPipeline as JaxFullSortPipeline
+from gpu_radix_sort_tpu.models.pipelines import (
+    PartialSortPipeline as JaxPartialSortPipeline,
+)
 from gpu_radix_sort_tpu.ops import boundaries as jbounds
 from gpu_radix_sort_tpu.ops import radix_sort as jrs
 from gpu_radix_sort_tpu.utils.keygen import Pcg32
 from gpu_radix_sort_tpu_torch.cli import main as port_cli
+from gpu_radix_sort_tpu_torch.ops import binning as bn
 from gpu_radix_sort_tpu_torch.ops import block_sort as bs
 from gpu_radix_sort_tpu_torch.ops import boundaries, radix_sort
-from gpu_radix_sort_tpu_torch.utils import timers
+from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+from gpu_radix_sort_tpu_torch.utils import checks, timers
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -89,14 +96,103 @@ def test_compute_boundaries_matches_jax(digits):
         )
 
 
-def test_stable_digit_sorts_are_not_ported_yet():
+@pytest.mark.parametrize(
+    "n", [0, 1, 5000, ds.MAX_N_KV, ds.MAX_N_KV + 1, bn.TILE + 1, 40000]
+)
+@pytest.mark.parametrize("offset,width", [(3, 1), (0, 4), (8, 8), (16, 16), (5, 11)])
+def test_sort_partial_stable_matches_jax(n, offset, width):
+    keys = Pcg32(state=n + width).fill(n)
+    keys[::4] &= np.uint32(0xFFFF00FF)  # duplicate digits: stability shows
+    want_s, want_b = jrs.sort_partial(jnp.asarray(keys), offset, width)
+    got_s, got_b = port.sort_partial(torch.from_numpy(keys), offset, width)
+    assert got_s.dtype == torch.uint32 and got_b.dtype == torch.uint32
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_b.numpy(), np.asarray(want_b))
+    want_s, want_c = jrs.sort_partial_counts(jnp.asarray(keys), offset, width)
+    got_s, got_c = port.sort_partial_counts(torch.from_numpy(keys), offset, width)
+    assert got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    got_t, _ = port.sort_partial(torch.from_numpy(keys), offset, width, strategy="torch")
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(want_s))
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "int32", "float32"])
+@pytest.mark.parametrize("n", [1, 5000, 40000])
+@pytest.mark.parametrize("strategy", [None, "torch"])
+def test_sort_key_value_by_digits_matches_jax(dtype, n, strategy):
+    keys = Pcg32(state=n).fill(n)
+    values = np.arange(n, dtype=np.uint32).view(dtype)
+    want_k, want_v = jrs.sort_key_value_by_digits(
+        jnp.asarray(keys), jnp.asarray(values), 8, 4
+    )
+    got_k, got_v = port.sort_key_value_by_digits(
+        torch.from_numpy(keys), torch.from_numpy(values), 8, 4, strategy=strategy
+    )
+    assert got_v.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_v.numpy().view(np.uint32),
+                                  np.asarray(want_v).view(np.uint32))
+
+
+def test_wide_kv_payloads_wait_for_roadmap_a4():
     keys = torch.from_numpy(Pcg32().fill(100))
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        port.sort_partial(keys, 0, 8)
-    with pytest.raises(NotImplementedError, match="B4/B5"):
-        port.sort_by_digits(keys, 0, 8, stable=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        port.sort_key_value_by_digits(keys, torch.zeros(100, 2, dtype=torch.int32), 0, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        port.sort_key_value_by_digits(keys, torch.zeros(100, dtype=torch.int64), 0, 4)
+    with pytest.raises(ValueError, match="leading axis"):
+        port.sort_key_value_by_digits(keys, torch.zeros(99, dtype=torch.int32), 0, 4)
+
+
+def test_digit_counts_and_counts_to_boundaries_match_jax():
+    keys = Pcg32(state=5).fill(20000)
+    keys[:3000] = 0x00000A00
+    for offset, width in [(8, 4), (0, 1), (16, 16)]:
+        want = np.asarray(jbounds.digit_counts(jnp.asarray(keys), offset, width))
+        got = port.digit_counts(torch.from_numpy(keys), offset, width)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            port.counts_to_boundaries(got).numpy(),
+            np.asarray(jbounds.counts_to_boundaries(jnp.asarray(want))),
+        )
+        np.testing.assert_array_equal(got.numpy(), checks.true_bucket_counts(keys, offset, width))
+
+
+def test_digit_range_is_validated():
+    keys = torch.from_numpy(Pcg32().fill(100))
+    for stable in (True, False):
+        with pytest.raises(ValueError, match="digit range"):
+            port.sort_by_digits(keys, 30, 4, stable=stable)
     with pytest.raises(ValueError, match="digit range"):
-        port.sort_by_digits(keys, 30, 4, stable=False)
+        port.sort_partial_counts(keys, 0, 0)
+    with pytest.raises(TypeError, match="1-D uint32"):
+        port.sort_partial(keys.view(torch.int32), 0, 4)
+
+
+def test_host_input_never_sorts_on_the_cpu(monkeypatch):
+    """A numpy array goes to the CUDA device; where there is none, every
+    entry point raises instead of quietly sorting on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = Pcg32().fill(100)
+    calls = [
+        lambda: port.sort_full(keys),
+        lambda: port.sort_by_digits(keys, 0, 8),
+        lambda: port.sort_partial(keys, 0, 8),
+        lambda: port.sort_partial(keys, 0, 8, stable=False),
+        lambda: port.sort_partial_counts(keys, 0, 8),
+        lambda: port.sort_key_value_by_digits(keys, np.arange(100, dtype=np.uint32), 0, 8),
+        lambda: port.sort_key_value_by_digits(
+            torch.from_numpy(keys), np.arange(100, dtype=np.uint32), 0, 8),
+        lambda: port.compute_boundaries(np.sort(keys), 0, 8),
+        lambda: port.digit_counts(keys, 0, 8),
+        lambda: port.counts_to_boundaries(np.ones(4, np.int32)),
+        lambda: port.extract_digits(keys, 0, 8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="pass a CPU torch.Tensor"):
+            call()
 
 
 def test_routes_and_strategies():
@@ -116,6 +212,9 @@ def test_routes_and_strategies():
         port.set_default_strategy("auto")
     with pytest.raises(TypeError, match="unsupported key dtype"):
         port.sort_full(torch.zeros(4, dtype=torch.int64))
+    assert radix_sort._resolve(None, ds.MAX_N_KV, "kv", 8) == "digit_sort"
+    assert radix_sort._resolve(None, ds.MAX_N_KV + 1, "kv", 8) == "binning"
+    assert radix_sort._resolve("torch", 10, "kv", 8) == "torch"
 
 
 def test_full_sort_pipeline_matches_jax():
@@ -123,6 +222,14 @@ def test_full_sort_pipeline_matches_jax():
     jfn, (jexample,) = JaxFullSortPipeline(n=3000).build()
     np.testing.assert_array_equal(example.numpy(), np.asarray(jexample))
     np.testing.assert_array_equal(fn(example).numpy(), np.asarray(jfn(jexample)))
+
+
+def test_partial_sort_pipeline_matches_jax():
+    fn, (example,) = port.PartialSortPipeline(n=3000, offset=4, width=8, device="cpu").build()
+    jfn, (jexample,) = JaxPartialSortPipeline(n=3000, offset=4, width=8).build()
+    np.testing.assert_array_equal(example.numpy(), np.asarray(jexample))
+    for got, want in zip(fn(example), jfn(jexample)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_cli_gen_and_sort_match_jax_file_format(tmp_path, capsys):
