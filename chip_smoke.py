@@ -18,11 +18,32 @@
    with an arange column and the one-block digit-sort route;
 6. times each path, its torch.sort yardstick, each kernel and its plain
    version by the CUDA-event median, and profiles the partial sorts by
-   kernel (torch.profiler).
+   kernel (torch.profiler);
+7. holds segment_copy (B6) and group_sort_send (B7) against their plain
+   versions byte for byte, on 1 to 8 ranks of one card, schedules from
+   uniform, duplicate, presorted, skewed and all-equal keys, and 64Mi keys a
+   rank on 4 ranks;
+8. drives the third main path -- sort_distributed of the same 256Mi keys at
+   width 8 through exchange="rdma" on key_mesh() -- with the launch counts
+   set to 0 just before and read just after, exact against np.sort; then on
+   four ranks of cuda:0 through "rdma" and "rdma_overlap" the same way, and
+   width 16, the collective exchanges, all-equal and typed keys;
+9. times the mesh sorts, one B6 launch and one B7 round, and profiles the
+   one-rank rdma sort by kernel.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
 Without a CUDA device it exits 1 and prints no result.
+
+    python3 chip_smoke.py --all-cards
+
+runs only the mesh LSD sort across every visible card (two or more), the
+route one card cannot reach: B6 and B7 store through peer access into the
+other cards' buffers, and events order the cards' streams.  It holds both
+kernels against their plain versions across cards, sorts the same 256Mi
+keys exactly through rdma, rdma_overlap and alltoall with launch counts,
+and times each sort, a B6 round and a B7 round (overlapped and serial)
+across the cards against the same work on as many ranks of cuda:0.
 """
 
 from __future__ import annotations
@@ -38,6 +59,8 @@ import torch
 N_MAIN = 1 << 26  # 64M keys, 256 MiB: the sort_full path's size
 N_PART = 1 << 28  # 256Mi keys, 1 GiB: the stable partial sorts' size
 PART_WIDTHS = (4, 8, 16)
+N_MESH = N_PART  # the mesh LSD sort's size: the same 256Mi keys
+MESH_RANKS = 4  # ranks on one card for the multi-rank runs
 
 # Published peaks of one H100 SXM: HBM bytes/s, and 32-bit operations/s
 # outside the tensor cores (the float32 row of the data sheet).
@@ -53,12 +76,17 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def card_line() -> str:
+def card_lines() -> list[str]:
+    """Name and power limit of each card, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout
-    return out.strip().splitlines()[0]
+    return out.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -114,6 +142,363 @@ def total_order_np(a: np.ndarray) -> np.ndarray:
     return u ^ np.where(u >> np.uint32(31), np.uint32(0xFFFFFFFF), np.uint32(0x80000000))
 
 
+def exchange_inputs(rng, n: int):
+    """The key distributions the exchange kernels are held on: their
+    schedules run from even to all-in-one-peer, with empty segments."""
+    yield "uniform", rng.integers(0, 1 << 32, n, dtype=np.uint32)
+    yield "duplicate", rng.integers(0, 4, n, dtype=np.uint32) << np.uint32(8)
+    yield "presorted", np.sort(rng.integers(0, 1 << 32, n, dtype=np.uint32))
+    yield "skewed", (rng.zipf(1.3, n) % (1 << 16)).astype(np.uint32) << np.uint32(8)
+    yield "equal", np.full(n, 0x9E3779B9, np.uint32)
+
+
+def same_bytes(got: list, want: list, what: str) -> int:
+    """0 when each tensor of ``got`` equals its counterpart in ``want`` byte
+    for byte (compared on got's device; want may lie elsewhere); else fail."""
+    for d in {g.device for g in got if g.device.type == "cuda"}:
+        torch.cuda.synchronize(d)
+    for r, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g.view(torch.int32), w.to(g.device).view(torch.int32)):
+            fail(f"{what}: rank {r} differs from the plain version")
+    return 0
+
+
+def b6_round(shards: list):
+    """A function that runs one round of B6 over ``shards`` (one a rank, by
+    digit 0..7): the digit sorts and the schedule are made here, once."""
+    from gpu_radix_sort_tpu_torch.ops.boundaries import digit_counts_sorted
+    from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel.mesh import all_gather
+
+    n_local = shards[0].numel()
+    sorted_ = [sort_by_digits(s, 0, 8) for s in shards]
+    counts = all_gather([digit_counts_sorted(s, 0, 8) for s in sorted_])
+    segs = [rx.segments(rx.send_matrix(c, n_local), i) for i, c in enumerate(counts)]
+    recv = [torch.empty_like(s) for s in shards]
+
+    def run():
+        rx.begin_sends(sorted_, recv)
+        for s, seg in zip(sorted_, segs):
+            rx.segment_copy(s, seg, recv)
+        rx.end_sends(sorted_, recv)
+    return run
+
+
+def b7_round(shards: list, mode: str):
+    """A function that runs one round of B7 over ``shards`` (digit 0..7,
+    the largest tile): ``mode`` "send" (overlapped), "serial" (sort-only
+    launches, then B6) or "plain" (the plain version)."""
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel.mesh import all_gather
+
+    n_local = shards[0].numel()
+    tile = ov.pick_tile(n_local)
+    hists = all_gather([ov._group_hist(s, 0, 8, tile) for s in shards])
+    scheds = [torch.stack(ov.overlap_schedule(h, n_local))[:, i].contiguous()
+              for i, h in enumerate(hists)]
+    segs = [ov.group_segments(sched, tile) for sched in scheds]
+    recv = [torch.empty_like(s) for s in shards]
+
+    def run():
+        rx.begin_sends(shards, recv)
+        for s, sched, seg in zip(shards, scheds, segs):
+            if mode == "serial":
+                rx.segment_copy(ov.group_sort(s, tile, 0, 8), seg, recv)
+            elif mode == "plain":
+                ov.group_sort_send_plain(s, tile, 0, 8, sched, recv)
+            else:
+                ov.group_sort_send(s, tile, 0, 8, sched, recv)
+        rx.end_sends(shards, recv)
+    return run
+
+
+def check_segment_copy(dev, rng, ranks, n_small: int, n_big: int) -> int:
+    """B6 byte for byte against segment_copy_plain: for each rank count, the
+    schedules that real counts give (through the port's digit sort and
+    send_matrix), every sender; then 4 ranks of n_big keys.  Returns the
+    number of launches compared."""
+    from gpu_radix_sort_tpu_torch.ops.boundaries import digit_counts_sorted
+    from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+
+    def one(a: np.ndarray, P: int, what: str) -> int:
+        x = torch.from_numpy(a).to(dev).view(P, -1)
+        n_local = x.shape[1]
+        shards = [sort_by_digits(x[i].contiguous(), 8, 8) for i in range(P)]
+        counts = torch.stack([digit_counts_sorted(s, 8, 8) for s in shards])
+        M = rx.send_matrix(counts, n_local)
+        for i, s in enumerate(shards):
+            segs = rx.segments(M, i)
+            got = [torch.zeros(n_local, dtype=torch.uint32, device=dev) for _ in range(P)]
+            want = [torch.zeros(n_local, dtype=torch.uint32, device=dev) for _ in range(P)]
+            rx.segment_copy(s, segs, got)
+            rx.segment_copy_plain(s, segs, want)
+            same_bytes(got, want, f"segment_copy {what} sender {i}")
+        return P
+
+    cases = 0
+    for P in ranks:
+        for name, a in exchange_inputs(rng, n_small * P):
+            cases += one(a, P, f"P={P} n_local={n_small} {name}")
+    cases += one(rng.integers(0, 1 << 32, 4 * n_big, dtype=np.uint32), 4,
+                 f"P=4 n_local={n_big} uniform")
+    return cases
+
+
+def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
+    """B7 byte for byte against its plain version on 4 ranks, in both modes
+    (send, and sort-only into a staging buffer); the serial round equal to
+    the overlapped one; then one round of n_big keys a rank.  Returns the
+    number of launches compared."""
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel.mesh import all_gather, key_mesh, shard
+
+    P = 4
+    mesh = key_mesh([dev] * P)
+
+    def one(a: np.ndarray, tile: int, w: int, what: str) -> int:
+        shards = shard(torch.from_numpy(a).to(dev), mesh)
+        n_local = shards[0].numel()
+        hists = all_gather([ov._group_hist(s, 8, w, tile) for s in shards])
+        start, dst_start = ov.overlap_schedule(hists[0], n_local)
+        got = [torch.zeros(n_local, dtype=torch.uint32, device=dev) for _ in range(P)]
+        want = [torch.zeros(n_local, dtype=torch.uint32, device=dev) for _ in range(P)]
+        for i, s in enumerate(shards):
+            sched = torch.stack([start[i], dst_start[i]])
+            ov.group_sort_send(s, tile, 8, w, sched, got)
+            ov.group_sort_send_plain(s, tile, 8, w, sched, want)
+            same_bytes([ov.group_sort(s, tile, 8, w)], [ov.sort_groups_plain(s, tile, 8, w)],
+                       f"group_sort {what} rank {i}")
+        same_bytes(got, want, f"group_sort_send {what}")
+        return 2 * P
+
+    cases = 0
+    for tile in tiles:
+        for w in widths:
+            for G in groups:
+                for name, a in exchange_inputs(rng, P * G * tile):
+                    if name in ("uniform", "skewed"):
+                        cases += one(a, tile, w, f"tile={tile} width={w} G={G} {name}")
+    a = rng.integers(0, 1 << 32, P * 64 * tiles[-1], dtype=np.uint32)
+    shards = shard(torch.from_numpy(a).to(dev), mesh)
+    serial, _ = ov.exchange_round_rdma_overlapped(shards, 8, 8, tile=tiles[-1], serial=True)
+    overlapped, _ = ov.exchange_round_rdma_overlapped(shards, 8, 8, tile=tiles[-1])
+    same_bytes(overlapped, serial, "rdma_overlap round, overlapped vs serial")
+    cases += one(rng.integers(0, 1 << 32, P * n_big, dtype=np.uint32), ov.MAX_TILE, 8,
+                 f"tile={ov.MAX_TILE} width=8 n_local={n_big}")
+    return cases
+
+
+def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray) -> dict:
+    """Steps 7-9: the exchange kernels, the mesh LSD sort of ``part`` (256Mi
+    PCG32 keys on the card) and their times.  Returns the results for the
+    JSON line."""
+    import gpu_radix_sort_tpu_torch as port
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits
+    from gpu_radix_sort_tpu_torch.ops.boundaries import digit_counts
+    from gpu_radix_sort_tpu_torch.parallel import distributed as dist
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
+    from gpu_radix_sort_tpu_torch.utils import timers
+
+    n_rank = N_MESH // MESH_RANKS
+    t0 = time.perf_counter()
+    b6_cases = check_segment_copy(dev, rng, (1, 2, 4, 8), 1000, n_rank)
+    log(f"segment_copy: {b6_cases} launches equal to the plain version byte for "
+        f"byte (P in (1, 2, 4, 8), n_local 1000, uniform/duplicate/presorted/"
+        f"skewed/equal; P=4 at n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    b7_cases = check_group_sort_send(dev, rng, (1024, 2048, ov.MAX_TILE), (1, 4, 8),
+                                     (1, 3, 64), n_rank)
+    log(f"group_sort_send: {b7_cases} launches (send and sort-only) equal to the "
+        f"plain version byte for byte (tiles 1024/2048/{ov.MAX_TILE}, widths 1/4/8, "
+        f"G 1/3/64, uniform/skewed, 4 ranks; serial round == overlapped round; "
+        f"n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
+
+    counters = {"segment_copy": rx, "group_sort_send": ov, "block_sort": bs,
+                "merge_level": ms, "digit_sort": ds, "binning": bn}
+
+    def zero() -> None:
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read() -> dict:
+        return {name: mod.launches for name, mod in counters.items()}
+
+    def exact(out: torch.Tensor, want: np.ndarray, what: str) -> None:
+        if not np.array_equal(out.cpu().numpy(), want):
+            fail(f"{what} differs from np.sort")
+
+    t0 = time.perf_counter()
+    want = np.sort(part_np)
+    log(f"mesh path: np.sort of {N_MESH} keys in {time.perf_counter() - t0:.1f} s "
+        f"(the oracle of every {N_MESH}-key check below)")
+
+    # -- main path three: sort_distributed(rdma) on key_mesh() ---------------
+    mesh1 = key_mesh()
+    P1 = mesh1.size
+    levels = (N_MESH // P1 // bs.TILE - 1).bit_length()
+    nsteps = 32 // 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero()
+    t0 = time.perf_counter()
+    out = port.sort_distributed(part, mesh=mesh1, width=8, exchange="rdma")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    main_launches = read()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    expect = {"segment_copy": nsteps * P1, "group_sort_send": 0,
+              "block_sort": (nsteps + 1) * P1, "merge_level": (nsteps + 1) * P1 * levels,
+              "digit_sort": 0, "binning": 0}
+    log(f"main path: sort_distributed(width=8, exchange='rdma') of {N_MESH} PCG32 keys "
+        f"on key_mesh() ({P1} rank), launches {main_launches}; first call "
+        f"{first_ms:.1f} ms by host clock; peak device memory {peak:.0f} MiB above "
+        f"the {N_MESH * 4 / 2**20:.0f} MiB of keys")
+    if main_launches != expect:
+        fail(f"main path launches {main_launches}, expected {expect}")
+    exact(out, want, f"sort_distributed rdma of {N_MESH} keys on key_mesh()")
+    del out
+    log("main path: exact against np.sort")
+
+    # -- four ranks on one card ------------------------------------------------
+    mesh4 = key_mesh([dev] * MESH_RANKS)
+    levels4 = (n_rank // bs.TILE - 1).bit_length()
+    four = {
+        "rdma": {"segment_copy": nsteps * MESH_RANKS, "group_sort_send": 0,
+                 "block_sort": (nsteps + 1) * MESH_RANKS,
+                 "merge_level": (nsteps + 1) * MESH_RANKS * levels4,
+                 "digit_sort": 0, "binning": 0},
+        "rdma_overlap": {"segment_copy": 0, "group_sort_send": nsteps * MESH_RANKS,
+                         "block_sort": 0, "merge_level": 0, "digit_sort": 0,
+                         "binning": nsteps * MESH_RANKS * 2},
+    }
+    four_launches = {}
+    for exchange, expect in four.items():
+        zero()
+        t0 = time.perf_counter()
+        out = port.sort_distributed(part, mesh=mesh4, width=8, exchange=exchange)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        four_launches[exchange] = read()
+        log(f"four ranks: sort_distributed(width=8, exchange={exchange!r}) of {N_MESH} "
+            f"keys, {MESH_RANKS} ranks on {dev}, launches {four_launches[exchange]}; "
+            f"first call {first_ms:.1f} ms by host clock")
+        if four_launches[exchange] != expect:
+            fail(f"four-rank {exchange} launches {four_launches[exchange]}, expected {expect}")
+        exact(out, want, f"four-rank sort_distributed {exchange}")
+        del out
+    log("four ranks: rdma and rdma_overlap exact against np.sort")
+    del want
+
+    n_mid = 1 << 24
+    mid, mid_want = part[:n_mid], np.sort(part_np[:n_mid])
+    for exchange, width in (("rdma", 16), ("alltoall", 8), ("gather", 8)):
+        exact(port.sort_distributed(mid, mesh=mesh4, width=width, exchange=exchange),
+              mid_want, f"four-rank {exchange} width {width} at {n_mid}")
+    equal = torch.from_numpy(np.full(n_mid, 0x9E3779B9, np.uint32)).to(dev)
+    for exchange in ("rdma", "rdma_overlap"):
+        got = port.sort_distributed(equal, mesh=mesh4, exchange=exchange)
+        exact(got, np.full(n_mid, 0x9E3779B9, np.uint32), f"all-equal keys via {exchange}")
+    n_typed = 1 << 22
+    ints = part_np[:n_typed].view(np.int32)
+    got = port.sort_distributed(torch.from_numpy(ints).to(dev), mesh=mesh4, exchange="rdma")
+    if not np.array_equal(got.cpu().numpy(), np.sort(ints)):
+        fail("int32 keys via rdma differ from np.sort")
+    floats = part_np[n_typed:2 * n_typed].view(np.float32)
+    got = port.sort_distributed(torch.from_numpy(floats).to(dev), mesh=mesh4, exchange="rdma")
+    if not np.array_equal(total_order_np(got.cpu().numpy()), np.sort(total_order_np(floats))):
+        fail("float32 keys via rdma differ from the numpy totalOrder sort")
+    del mid, equal, got
+    log(f"four ranks: rdma width 16, alltoall and gather at {n_mid} exact; all-equal "
+        f"keys via rdma and rdma_overlap exact; int32 and float32 via rdma at "
+        f"{n_typed} exact")
+
+    # -- times -------------------------------------------------------------------
+    shards1 = shard(part, mesh1)
+    fn1 = dist.build_distributed_sort(mesh1, N_MESH // P1, width=8, exchange="rdma")
+    shards4 = shard(part, mesh4)
+    fn4 = dist.build_distributed_sort(mesh4, n_rank, width=8, exchange="rdma")
+    fn4o = dist.build_distributed_sort(mesh4, n_rank, width=8, exchange="rdma_overlap")
+    res = {
+        "mesh_rdma_ms": timers.time_cuda(lambda: fn1(shards1)),
+        "sort_full_256Mi_ms": timers.time_cuda(lambda: rs.sort_full(part)),
+        "torch_sort_256Mi_ms": timers.time_cuda(lambda: rs.sort_full(part, strategy="torch")),
+        "mesh4_rdma_ms": timers.time_cuda(lambda: fn4(shards4)),
+        "mesh4_rdma_overlap_ms": timers.time_cuda(lambda: fn4o(shards4)),
+    }
+    log(f"time [{card}]: sort_distributed rdma, {P1} rank, {N_MESH} keys "
+        f"{res['mesh_rdma_ms']:.3f} ms ({N_MESH / (res['mesh_rdma_ms'] * 1e-3):.4g} "
+        f"keys/s); sort_full of the same keys {res['sort_full_256Mi_ms']:.3f} ms; "
+        f"torch.sort (strategy='torch') {res['torch_sort_256Mi_ms']:.3f} ms")
+    log(f"time [{card}]: {MESH_RANKS} ranks on one card: rdma {res['mesh4_rdma_ms']:.3f} "
+        f"ms; rdma_overlap {res['mesh4_rdma_overlap_ms']:.3f} ms")
+
+    # B6: one launch over the whole shard (one rank: one segment of 256Mi)
+    segs1 = rx.segments(rx.send_matrix(digit_counts(part, 0, 8)[None], N_MESH), 0)
+    recv1 = [torch.empty_like(part)]
+    ms_b6 = timers.time_cuda(lambda: rx.segment_copy(part, segs1, recv1))
+    ms_b6_plain = timers.time_cuda(lambda: rx.segment_copy_plain(part, segs1, recv1))
+    ms_copy = timers.time_cuda(lambda: recv1[0].copy_(part))
+    b6_bound = bound(8 * N_MESH, 0)
+    # ... and one round's four launches on four ranks (4 segments each)
+    ms_b6_round = timers.time_cuda(b6_round(shards4))
+    log(f"time [{card}]: segment_copy one launch of {N_MESH} keys {ms_b6:.3f} ms "
+        f"({8 * N_MESH / (ms_b6 * 1e-3) / 1e9:.4g} GB/s moved; bound {b6_bound[0]:.3f} "
+        f"ms); plain {ms_b6_plain:.3f} ms; copy_ of the same bytes {ms_copy:.3f} ms; "
+        f"a {MESH_RANKS}-rank round (4 launches, 4 segments each) {ms_b6_round:.3f} ms")
+    del recv1
+
+    # B7: one round on four ranks, overlapped and serial
+    tile = ov.pick_tile(n_rank)
+    rows = sortable_digits(part.view(-1, tile), 0, 8)
+    ms_b7 = timers.time_cuda(b7_round(shards4, "send"))
+    ms_b7_serial = timers.time_cuda(b7_round(shards4, "serial"))
+    ms_b7_plain = timers.time_cuda(b7_round(shards4, "plain"))
+    ms_b7_lib = timers.time_cuda(lambda: torch.sort(rows, dim=1, stable=True))
+    ms_b7_sort = timers.time_cuda(lambda: [ov.group_sort(s, tile, 0, 8) for s in shards4])
+    b7_bound = bound(8 * N_MESH, N_MESH // 2 * network_stages(tile))
+    log(f"time [{card}]: group_sort_send, one round of {MESH_RANKS} launches over "
+        f"{N_MESH} keys (tile {tile}, width 8): overlapped {ms_b7:.3f} ms; serial "
+        f"(sort-only launches + segment_copy) {ms_b7_serial:.3f} ms; sort-only "
+        f"launches alone {ms_b7_sort:.3f} ms; plain {ms_b7_plain:.3f} ms; stable "
+        f"torch.sort of the (G, tile) digit rows {ms_b7_lib:.3f} ms; bound "
+        f"{b7_bound[0]:.3f} ms ({b7_bound[1]})")
+    del rows
+
+    prof = device_profile(lambda: fn1(shards1))
+    if prof is None:
+        log(f"profile [{card}]: sort_distributed rdma: the profiler saw no device "
+            f"work (not measured)")
+    else:
+        by_name, idle = prof
+        total = sum(by_name.values())
+        log(f"profile [{card}]: sort_distributed rdma, {P1} rank, {N_MESH} keys: device "
+            f"{total:.3f} ms a call over 3 calls, idle share {idle:.4f}; top:")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+            log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
+
+    res["kernels"] = [
+        ("segment_copy", "exchange.cu", "gpu_radix_sort_tpu/parallel/rdma_exchange.py:60",
+         main_launches["segment_copy"], 0, ms_b6, ms_b6_plain, b6_bound, ms_copy,
+         {"round4_ms": ms_b6_round, "launches_four_ranks": four_launches["rdma"]["segment_copy"]}),
+        ("group_sort_send", "exchange.cu", "gpu_radix_sort_tpu/parallel/rdma_overlap.py:116",
+         four_launches["rdma_overlap"]["group_sort_send"], 0, ms_b7, ms_b7_plain, b7_bound,
+         ms_b7_lib, {"serial_ms": ms_b7_serial, "sort_only_ms": ms_b7_sort, "tile": tile}),
+    ]
+    res["n_mesh"] = N_MESH
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -128,6 +513,7 @@ def main() -> int:
     from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits, to_int64
     from gpu_radix_sort_tpu_torch.utils import checks, keygen, timers
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
@@ -486,6 +872,10 @@ def main() -> int:
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
 
+    del vals
+    torch.cuda.empty_cache()
+    mesh = mesh_path(dev, rng, card, part, part_np)
+
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"gpu_radix_sort_tpu_torch/csrc/{source}",
@@ -508,15 +898,185 @@ def main() -> int:
                sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
                bin_bound, None, launches_by_width=part_launches,
                kv_launches=kv_launches, stage_a_ms=ms_stage_a),
+        *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
-        "n_partial": N_PART, "peak_mib_partial": peak_part, "card": card}))
+        "n_partial": N_PART, "peak_mib_partial": peak_part, **mesh, "card": card}))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 
 
+def synced_ms(fn, devices: list, iters: int = 10) -> float:
+    """Median host-clock milliseconds of ``fn()`` through a synchronise of
+    every device: CUDA events on one stream would miss the other cards'
+    work."""
+    from gpu_radix_sort_tpu_torch.utils import timers
+
+    def run():
+        fn()
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    return timers.time_wall(run, warmup=2, iters=iters)
+
+
+def host_syncs(fn) -> list[str]:
+    """The calls in ``fn()`` that make the host wait for a card, from
+    PyTorch's sync debug mode: a single controller that waits on one card
+    cannot enqueue the others' work meanwhile."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{'/'.join(w.filename.split('/')[-3:])}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def all_cards_main() -> int:
+    """``--all-cards``: the mesh sort across every card (see the module
+    docstring)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --all-cards: needs two or more CUDA devices", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    cards = card_lines()
+    for line in cards:
+        log(line)
+    P = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    build.load()
+    log(f"build: {build.library_path().name} ready in {time.perf_counter() - t0:.2f} s")
+    access = [[a == b or torch.cuda.can_device_access_peer(a, b) for b in range(P)]
+              for a in range(P)]
+    log(f"peer access (row may write column): {access}")
+    res = all_cards_path([torch.device("cuda", i) for i in range(P)], cards[0])
+    print(json.dumps({"all_cards": P, "peer_access": access, **res, "cards": cards}))
+    log(f"chip_smoke --all-cards: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def all_cards_path(devs: list, card: str) -> dict:
+    """The checks and times of ``--all-cards`` over the ranks ``devs``, one
+    a card; returns the results for the JSON line."""
+    import gpu_radix_sort_tpu_torch as port
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.parallel import distributed as dist
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
+    from gpu_radix_sort_tpu_torch.utils import keygen
+
+    P = len(devs)
+    mesh, one_card = key_mesh(devs), key_mesh([devs[0]] * P)
+    cpu_mesh = key_mesh([torch.device("cpu")] * P)
+
+    def sync() -> None:
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    # -- B6 and B7 across cards against their plain versions (CPU shards) ----
+    rng = np.random.default_rng(1)
+    n_check = P << 20
+    cases = 0
+    for name, a in exchange_inputs(rng, n_check):
+        x = torch.from_numpy(a)
+        got = rx.exchange_round_rdma_raw(
+            [rs.sort_by_digits(s, 8, 8) for s in shard(x, mesh)], 8, 8)[1]
+        want = rx.exchange_round_rdma_raw(
+            [rs.sort_by_digits(s, 8, 8) for s in shard(x, cpu_mesh)], 8, 8)[1]
+        same_bytes(got, want, f"segment_copy across {P} cards, {name}")
+        tile = ov.pick_tile(n_check // P)
+        for serial in (False, True):
+            got = ov.exchange_round_rdma_overlapped(shard(x, mesh), 8, 8, tile=tile,
+                                                    serial=serial)[0]
+            want = ov.exchange_round_rdma_overlapped(shard(x, cpu_mesh), 8, 8, tile=tile,
+                                                     serial=serial)[0]
+            same_bytes(got, want, f"group_sort_send across {P} cards, serial={serial}, {name}")
+        cases += 3
+    log(f"exchange kernels across {P} cards: {cases} rounds (segment_copy; group_sort_send "
+        f"overlapped and serial) equal to their plain versions byte for byte "
+        f"(n_local={n_check // P}; uniform/duplicate/presorted/skewed/equal)")
+
+    # -- the mesh sort of 256Mi keys across the cards ------------------------
+    keygen.reset_global_stream()
+    part_np = keygen.generate_keys(N_MESH)
+    want = np.sort(part_np)
+    part = torch.from_numpy(part_np).to(devs[0])
+    n_local = N_MESH // P
+    counters = {"segment_copy": rx, "group_sort_send": ov, "block_sort": bs,
+                "merge_level": ms, "binning": bn}
+    nsteps = 32 // 8
+    levels = (n_local // bs.TILE - 1).bit_length()
+    expected = {
+        "rdma": {"segment_copy": nsteps * P, "group_sort_send": 0,
+                 "block_sort": (nsteps + 1) * P, "merge_level": (nsteps + 1) * P * levels,
+                 "binning": 0},
+        "rdma_overlap": {"segment_copy": 0, "group_sort_send": nsteps * P,
+                         "block_sort": 0, "merge_level": 0, "binning": nsteps * P * 2},
+        "alltoall": None,  # the collective exchange: exactness only
+    }
+    launches = {}
+    for exchange, expect in expected.items():
+        for mod in counters.values():
+            mod.launches = 0
+        out = port.sort_distributed(part, mesh=mesh, width=8, exchange=exchange)
+        sync()
+        launches[exchange] = {name: mod.launches for name, mod in counters.items()}
+        log(f"all cards: sort_distributed(width=8, exchange={exchange!r}) of {N_MESH} PCG32 "
+            f"keys on {P} cards, launches {launches[exchange]}")
+        if expect is not None and launches[exchange] != expect:
+            fail(f"{exchange} across cards launches {launches[exchange]}, expected {expect}")
+        if not np.array_equal(out.cpu().numpy(), want):
+            fail(f"sort_distributed {exchange} across {P} cards differs from np.sort")
+        del out
+    log("all cards: rdma, rdma_overlap and alltoall exact against np.sort")
+    del want
+
+    # -- times: across the cards, and the same work on P ranks of cuda:0 ------
+    res = {"launches": launches, "n_mesh": N_MESH}
+    shards_cards, shards_one = shard(part, mesh), shard(part, one_card)
+    for exchange in expected:
+        fn_one = dist.build_distributed_sort(one_card, n_local, width=8, exchange=exchange)
+        fn_cards = dist.build_distributed_sort(mesh, n_local, width=8, exchange=exchange)
+        res[f"{exchange}_one_card_ms"] = synced_ms(lambda: fn_one(shards_one), devs)
+        res[f"{exchange}_cards_ms"] = synced_ms(lambda: fn_cards(shards_cards), devs)
+        syncs = host_syncs(lambda: fn_cards(shards_cards))
+        res[f"{exchange}_host_syncs"] = len(syncs)
+        log(f"time [{card}]: sort_distributed {exchange}, {N_MESH} keys, {P} ranks: "
+            f"{P} cards {res[f'{exchange}_cards_ms']:.3f} ms; one card "
+            f"{res[f'{exchange}_one_card_ms']:.3f} ms (host clock through a synchronise "
+            f"of every card, median of 10); {len(syncs)} host synchronisations in a "
+            f"sort{': ' if syncs else ''}{'; '.join(sorted(set(syncs))[:3])}")
+
+    for where, shards in (("one_card", shards_one), ("cards", shards_cards)):
+        res[f"b6_round_{where}_ms"] = synced_ms(b6_round(shards), devs)
+        res[f"b7_round_{where}_ms"] = synced_ms(b7_round(shards, "send"), devs)
+        res[f"b7_serial_{where}_ms"] = synced_ms(b7_round(shards, "serial"), devs)
+    log(f"time [{card}]: a segment_copy round ({P} launches of {n_local} keys): {P} cards "
+        f"{res['b6_round_cards_ms']:.3f} ms, one card {res['b6_round_one_card_ms']:.3f} ms; "
+        f"a group_sort_send round, overlapped / serial: {P} cards "
+        f"{res['b7_round_cards_ms']:.3f} / {res['b7_serial_cards_ms']:.3f} ms, one card "
+        f"{res['b7_round_one_card_ms']:.3f} / {res['b7_serial_one_card_ms']:.3f} ms")
+    return res
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(all_cards_main() if sys.argv[1:] == ["--all-cards"] else main())

@@ -4,10 +4,15 @@ The same public surface as the JAX package, on PyTorch tensors: sorts run on
 the device of the tensor they are given.  On a CUDA tensor the sorts go
 through kernels written by hand for Hopper (``csrc/``, built with nvcc at
 first use); on a CPU tensor through those kernels' plain PyTorch versions.
-This package imports neither jax nor the JAX package.
+The mesh sorts run over a list of devices held by one process
+(``parallel/``).  This package imports neither jax nor the JAX package.
 """
 
-from .models.pipelines import FullSortPipeline, PartialSortPipeline
+from .models.pipelines import (
+    DistributedSortPipeline,
+    FullSortPipeline,
+    PartialSortPipeline,
+)
 from .ops.bits import extract_digits
 from .ops.boundaries import compute_boundaries, counts_to_boundaries, digit_counts
 from .ops.radix_sort import (
@@ -19,6 +24,7 @@ from .ops.radix_sort import (
     sort_partial,
     sort_partial_counts,
 )
+from .parallel import build_distributed_sort, key_mesh, sort_distributed
 from .utils.keygen import Pcg32, generate_keys, reset_global_stream
 
 __version__ = "0.1.0"
@@ -38,7 +44,11 @@ __all__ = [
     "Pcg32",
     "generate_keys",
     "reset_global_stream",
+    "sort_distributed",
+    "build_distributed_sort",
+    "key_mesh",
     "FullSortPipeline",
     "PartialSortPipeline",
+    "DistributedSortPipeline",
     "__version__",
 ]

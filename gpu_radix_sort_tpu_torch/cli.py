@@ -1,4 +1,4 @@
-"""Command-line entry point (ported subcommands: gen, sort --mode single).
+"""Command-line entry point (ported subcommands: gen, sort --mode single|mesh).
 
   gen    write the deterministic PCG32 key stream to a raw uint32 file
   sort   sort keys from a raw uint32 file (or generated ones)
@@ -35,16 +35,29 @@ def _load_keys(args) -> np.ndarray:
     return Pcg32().fill(args.n if args.n is not None else 1 << 20)
 
 
-def _cmd_sort(args) -> int:
-    if args.mode != "single":
-        raise NotImplementedError(f"sort --mode {args.mode} is not yet ported")
-    from .ops.radix_sort import sort_full
+def _sort(keys: np.ndarray, args, device: torch.device) -> torch.Tensor:
+    if args.mode == "single":
+        from .ops.radix_sort import sort_full
 
+        return sort_full(torch.from_numpy(keys).to(device), strategy=args.strategy)
+    from .parallel import key_mesh, sort_distributed
+
+    # --device cuda: every CUDA device; --device cpu: one CPU rank
+    mesh = key_mesh() if device.type == "cuda" else key_mesh([device])
+    return sort_distributed(
+        torch.from_numpy(keys), mesh=mesh,
+        width=args.width if args.width is not None else 8,
+        exchange=args.exchange, strategy=args.strategy,
+    )
+
+
+def _cmd_sort(args) -> int:
+    if args.mode not in ("single", "mesh"):
+        raise NotImplementedError(f"sort --mode {args.mode} is not yet ported")
     keys = _load_keys(args)
     device = torch.device(args.device)
-    x = torch.from_numpy(keys).to(device)
     t0 = time.perf_counter()
-    got = sort_full(x, strategy=args.strategy)
+    got = _sort(keys, args, device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -85,6 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--in", dest="infile", default=None)
     s.add_argument("--out", default=None)
     s.add_argument("--strategy", default=None)
+    s.add_argument("--width", type=int, default=None)
+    s.add_argument("--exchange", default="auto")
     s.add_argument("--device", default="cuda")
     s.add_argument("--verify", action="store_true")
     s.set_defaults(fn=_cmd_sort)

@@ -1,0 +1,237 @@
+// The two exchange kernels of the mesh LSD sort: each sender writes its keys
+// straight into the receivers' buffers, at offsets derived from the gathered
+// digit counts.
+//
+// Replaces two Pallas kernels of the JAX package:
+//   * gpu_radix_sort_tpu/parallel/rdma_exchange.py:60 `_xchg_kernel` (B6):
+//     the ragged all-to-all of a digit-sorted shard, here
+//     `segment_copy_kernel`.  The TPU kernel issued remote DMAs of 16-row
+//     chunks from 128-lane rows and waited on semaphores; its receive
+//     buffers carried per-chunk slack that a validity mask hid.  Here a
+//     segment is (src_start, count, dst_rank, dst_start) to the element, so
+//     the receive buffer holds exactly its n_local keys.  The entry barrier
+//     and the drains become stream order (parallel/rdma_exchange.py).
+//   * gpu_radix_sort_tpu/parallel/rdma_overlap.py:116 `_xchg_overlap_kernel`
+//     (B7): for each group of `tile` keys, a stable digit sort and that
+//     group's sends.  Here `group_sort_send_kernel`, one block per group:
+//     the bitonic network of bitonic.cuh sorts the unique composites
+//     digit * tile + rank with the key as payload, then the block stores each
+//     destination's slice of its sorted tile straight from shared memory into
+//     that receiver's buffer.  No staging: the card overlaps the stores of
+//     early blocks with the sorting of later ones.  With `stage` set the
+//     kernel only sorts, into stage (the serial A/B mode; B6 then sends).
+//
+// The receivers' base addresses travel by value in the kernel's parameters
+// (RankTable, kMaxRanks pointers): building a device table from the host
+// would put a synchronising copy on the stream in every round.  A receiver
+// on another card is written through peer access
+// (grs_enable_peer_access); on one card all buffers are local.
+//
+// Bounds on this card.  segment_copy reads and writes each key once, 8 bytes
+// a key: bound by device-memory bandwidth.  Each block copies kCopyChunk
+// keys: one thread searches the segment range of the chunk's ends, then
+// every key searches that (usually one or two segment) range, so loads and
+// stores are coalesced within a segment.  group_sort_send runs the
+// log2(T)(log2(T)+1)/2 stages of the network in shared memory (105 at
+// T = 2^14), like block_sort, so it is bound by shared-memory traffic and
+// barriers; device memory sees 8 bytes a key.  The destinations of all
+// stores are disjoint (the counts-derived layout), so there are no atomics.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bitonic.cuh"
+
+namespace {
+
+using grs::bitonic_network;
+
+constexpr int kThreads = grs::kNetworkThreads;
+constexpr int kMaxTile = 1 << 14;  // 2 x 4 bytes a key: 128 KB of shared memory
+constexpr int kMaxRanks = 256;     // receivers a launch addresses (2 KB of parameters)
+constexpr int kCopyThreads = 256;
+constexpr int kCopyChunk = 4096;   // keys a segment_copy block moves
+
+struct RankTable {
+  uint32_t* base[kMaxRanks];
+};
+
+// The last s in [lo, hi] with starts[s] <= i; lo when there is none.
+__device__ __forceinline__ int last_at_or_below(const long long* starts, int lo,
+                                                int hi, long long i) {
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (starts[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// segs is (4, n_seg) int64: src_start, count, dst_rank, dst_start.  Segments
+// are in source order and disjoint (src_start[s] + count[s] <=
+// src_start[s + 1]); keys in no segment are not sent.
+__global__ void __launch_bounds__(kCopyThreads)
+segment_copy_kernel(const uint32_t* __restrict__ src, long long n_src,
+                    const long long* __restrict__ segs, int n_seg,
+                    const RankTable dst) {
+  const long long* seg_src = segs;
+  const long long* seg_count = segs + n_seg;
+  const long long* seg_rank = segs + 2 * (long long)n_seg;
+  const long long* seg_dst = segs + 3 * (long long)n_seg;
+  __shared__ int range[2];
+  const long long first = (long long)blockIdx.x * kCopyChunk;
+  const long long last = min(first + kCopyChunk, n_src) - 1;
+  if (threadIdx.x == 0) {
+    range[0] = last_at_or_below(seg_src, 0, n_seg - 1, first);
+  } else if (threadIdx.x == 32) {
+    range[1] = last_at_or_below(seg_src, 0, n_seg - 1, last);
+  }
+  __syncthreads();
+  const int lo = range[0];
+  const int hi = range[1];
+  for (long long i = first + threadIdx.x; i <= last; i += kCopyThreads) {
+    const int s = last_at_or_below(seg_src, lo, hi, i);
+    const long long off = i - seg_src[s];
+    if (off >= 0 && off < seg_count[s]) {
+      dst.base[seg_rank[s]][seg_dst[s] + off] = src[i];
+    }
+  }
+}
+
+// sched is (2, n_groups, nranks) int64: start[g, c], the first position of
+// destination c's slice in group g's sorted tile (start[g, 0] = 0, ascending
+// in c, the slices tile the group), and dst_start[g, c], where that slice
+// lands in receiver c's buffer.  With stage set, sched and dst are unused.
+__global__ void __launch_bounds__(kThreads)
+group_sort_send_kernel(const uint32_t* __restrict__ x, int tile, int log_tile,
+                       int offset, uint32_t mask,
+                       const long long* __restrict__ sched, long long n_groups,
+                       int nranks, const RankTable dst,
+                       uint32_t* __restrict__ stage) {
+  extern __shared__ uint32_t s[];
+  uint32_t* v = s + tile;
+  long long* row_start = reinterpret_cast<long long*>(v + tile);
+  long long* row_dst = row_start + nranks;
+  const long long g = blockIdx.x;
+  const long long base = g * tile;
+
+  for (int i = threadIdx.x; i < tile; i += kThreads) {
+    const uint32_t key = x[base + i];
+    s[i] = (((key >> offset) & mask) << log_tile) | (uint32_t)i;
+    v[i] = key;
+  }
+  if (stage == nullptr) {
+    for (int c = threadIdx.x; c < nranks; c += kThreads) {
+      row_start[c] = sched[g * nranks + c];
+      row_dst[c] = sched[(n_groups + g) * nranks + c];
+    }
+  }
+  __syncthreads();
+
+  bitonic_network<true>(s, v, tile);
+
+  if (stage != nullptr) {
+    for (int i = threadIdx.x; i < tile; i += kThreads) stage[base + i] = v[i];
+    return;
+  }
+  for (int i = threadIdx.x; i < tile; i += kThreads) {
+    const int c = last_at_or_below(row_start, 0, nranks - 1, i);
+    dst.base[c][row_dst[c] + (i - row_start[c])] = v[i];
+  }
+}
+
+int fill_table(RankTable* table, const long long* dst_ptrs, int nranks) {
+  if (dst_ptrs == nullptr || nranks < 1 || nranks > kMaxRanks) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int c = 0; c < kMaxRanks; ++c) {
+    table->base[c] = c < nranks
+        ? reinterpret_cast<uint32_t*>(static_cast<uintptr_t>(dst_ptrs[c]))
+        : nullptr;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// B6.  Copies each segment of src[0, n_src) into its receiver's buffer:
+// src[src_start + k] -> dst_ptrs[dst_rank][dst_start + k] for k < count.
+// segs is a device array (4, n_seg) int64 (see the kernel); dst_ptrs is a
+// HOST array of nranks device addresses (uint32_t*), nranks <= 256.
+// Launches on `stream`; returns cudaGetLastError().
+extern "C" int grs_segment_copy_u32(const uint32_t* src, long long n_src,
+                                    const long long* segs, int n_seg,
+                                    const long long* dst_ptrs, int nranks,
+                                    cudaStream_t stream) {
+  if (n_src < 0 || n_seg < 1 || segs == nullptr) return (int)cudaErrorInvalidValue;
+  RankTable table;
+  const int bad = fill_table(&table, dst_ptrs, nranks);
+  if (bad) return bad;
+  if (n_src == 0) return 0;
+  const long long grid = (n_src + kCopyChunk - 1) / kCopyChunk;
+  segment_copy_kernel<<<(unsigned)grid, kCopyThreads, 0, stream>>>(
+      src, n_src, segs, n_seg, table);
+  return (int)cudaGetLastError();
+}
+
+// B7.  For each group g of `tile` keys of x[0, n) (tile a power of two
+// <= 2^14 dividing n), a stable sort by bits [offset, offset + width),
+// width <= 8, then its slices sent as `sched` says (see the kernel) to the
+// receivers at the HOST array dst_ptrs[nranks].  With `stage` non-null the
+// sorted groups go to stage[0, n) instead and nothing is sent.  Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int grs_group_sort_send_u32(const uint32_t* x, long long n, int tile,
+                                       int offset, int width,
+                                       const long long* sched, int nranks,
+                                       const long long* dst_ptrs,
+                                       uint32_t* stage, cudaStream_t stream) {
+  if (n <= 0 || tile < 2 || tile > kMaxTile || (tile & (tile - 1)) != 0 ||
+      n % tile != 0 || width < 1 || width > 8 || offset < 0 ||
+      offset + width > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RankTable table = {};
+  if (stage == nullptr) {
+    if (sched == nullptr) return (int)cudaErrorInvalidValue;
+    const int bad = fill_table(&table, dst_ptrs, nranks);
+    if (bad) return bad;
+  }
+  int log_tile = 0;
+  while ((1 << log_tile) < tile) ++log_tile;
+  const long long n_groups = n / tile;
+  const int smem = 2 * tile * (int)sizeof(uint32_t) +
+                   (stage == nullptr ? 2 * nranks * (int)sizeof(long long) : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      group_sort_send_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  group_sort_send_kernel<<<(unsigned)n_groups, kThreads, smem, stream>>>(
+      x, tile, log_tile, offset, (1u << width) - 1u, sched, n_groups, nranks,
+      table, stage);
+  return (int)cudaGetLastError();
+}
+
+// Lets `device` write into `peer`'s memory (once for each ordered pair; a
+// second call is a no-op).  Returns cudaErrorPeerAccessUnsupported where the
+// two cards cannot reach each other: the exchange then raises, it never
+// copies through the host.
+extern "C" int grs_enable_peer_access(int device, int peer) {
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  int prev = 0;
+  err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear it, so the next launch check does not see it
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : back);
+}

@@ -5,8 +5,9 @@ use.  Each of ``csrc/*.cu`` goes through its own ``nvcc -c``, all started
 together, and one more ``nvcc`` links the objects into a shared library with
 a plain C interface (no PyTorch headers, so the build takes seconds),
 placed in ``gpu_radix_sort_tpu_torch/_build/`` under a name that hashes the
-sources and flags: an edited source builds anew, an unchanged one loads the
-library already built.
+sources, the headers they share (``csrc/*.cuh``) and the flags: an edited
+source or header builds anew, an unchanged tree loads the library already
+built.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.  A failed
@@ -44,11 +45,24 @@ _SIGNATURES = {
     # (keys, src, out, n, tile, offset, width, g_run, sflat, stream)
     "grs_binning_u32": (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                         ctypes.c_int, ctypes.c_int, _P, _P, _P),
+    # (src, n_src, segs, n_seg, dst_ptrs, nranks, stream)
+    "grs_segment_copy_u32": (_P, ctypes.c_longlong, _P, ctypes.c_int, _P,
+                             ctypes.c_int, _P),
+    # (x, n, tile, offset, width, sched, nranks, dst_ptrs, stage, stream)
+    "grs_group_sort_send_u32": (_P, ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                                _P, _P, _P),
+    # (device, peer)
+    "grs_enable_peer_access": (ctypes.c_int, ctypes.c_int),
 }
 
 
 def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -66,7 +80,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libgrs_kernels_{digest.hexdigest()[:16]}.so"

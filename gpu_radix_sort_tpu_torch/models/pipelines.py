@@ -4,6 +4,8 @@
     providedGpu path, invokers.cu:45).
   * :class:`PartialSortPipeline` — single-device stable partial sort plus
     boundaries (reference: gpuPartial path, invokers.cu:15).
+  * :class:`DistributedSortPipeline` — the mesh LSD sort over sharded keys
+    (reference: SortDistribFromRaw, distrib.go:183-248).
 
 ``build()`` returns the step function and its example inputs, so scripts
 and benchmarks share one definition.
@@ -16,6 +18,8 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import radix_sort
+from ..parallel import distributed
+from ..parallel.mesh import key_mesh, shard
 from ..utils.keygen import Pcg32
 
 
@@ -51,3 +55,37 @@ class PartialSortPipeline:
 
         example = torch.from_numpy(Pcg32().fill(self.n)).to(self.device)
         return step, (example,)
+
+
+@dataclass
+class DistributedSortPipeline:
+    """The distributed sort over a mesh (default: every CUDA device) with
+    the keys sharded over it.  ``algorithm="lsd"`` is the reference-parity
+    32/width radix rounds; ``"sample"`` (PSRS) is not ported yet."""
+
+    n_local: int = 1 << 16
+    width: int = 8
+    algorithm: str = "lsd"
+    exchange: str = "alltoall"
+    capacity_factor: float = 1.25
+    strategy: str | None = None
+    mesh: object = None
+
+    def build(self):
+        if self.algorithm == "sample":
+            raise NotImplementedError(
+                "algorithm='sample' (PSRS) is not ported yet: ROADMAP A8"
+            )
+        if self.algorithm != "lsd":
+            raise ValueError(f"algorithm must be 'lsd' or 'sample', got {self.algorithm!r}")
+        mesh = self.mesh or key_mesh()
+        fn = distributed.build_distributed_sort(
+            mesh,
+            self.n_local,
+            width=self.width,
+            exchange=self.exchange,
+            capacity_factor=self.capacity_factor,
+            strategy=self.strategy,
+        )
+        keys = torch.from_numpy(Pcg32().fill(self.n_local * mesh.size))
+        return fn, (shard(keys, mesh),)

@@ -1,0 +1,193 @@
+"""Ragged bucket exchange: each sender writes its per-peer slices straight
+into the receivers' buffers (B6).
+
+Port of ``gpu_radix_sort_tpu/parallel/rdma_exchange.py``.  On the TPU one
+Pallas program a chip issued remote DMAs of 16-row chunks at offsets
+derived from the all-gathered counts, behind an entry barrier, and drained
+semaphores; chunk rounding left slack slots in the receive buffer, masked
+by ``tags == D``.  Here:
+
+  * the schedule is built on the device from the gathered (P, D) counts:
+    ``M[src, dst]`` (:func:`send_matrix`, the closed form of
+    rdma_exchange.py:234-244) and, for each sender, P segments
+    (src_start, count, dst_rank, dst_start) exact to the element
+    (:func:`segments`).  Nothing is synchronised with the host;
+  * :func:`segment_copy`, the wrapper of ``segment_copy_kernel`` in
+    ``csrc/exchange.cu``, copies every segment into its receiver's buffer,
+    one launch for each sender and round.  Rank c's buffer holds exactly its
+    n_local keys, each source's slice in source order, so there are no slack
+    slots and ``tags`` are the plain digits;
+  * the barrier and the drains become stream order (:func:`begin_sends`,
+    :func:`end_sends`): before any sender launches, its stream waits on an
+    event recorded on each receiver's stream after the receive buffers were
+    allocated, and after the launches each receiver's stream waits on every
+    sender.  Ranks that share a device share its stream, and then nothing is
+    recorded.  Across cards the stores go through peer access, enabled once
+    for each pair; where ``cudaDeviceCanAccessPeer`` says no, the exchange
+    raises, it never copies through the host.
+
+On a CPU tensor :func:`segment_copy` runs :func:`segment_copy_plain`, a loop
+of slice assignments; on CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import build
+from ..ops.block_sort import check_keys
+from ..ops.boundaries import digit_counts_sorted
+from ..ops.radix_sort import sort_by_digits
+from .exchange import _run_starts_global, _slice_counts, digits_i32
+from .mesh import all_gather
+
+MAX_RANKS = 256  # receivers one launch addresses (kMaxRanks in csrc/exchange.cu)
+
+launches = 0  # kernel launches, for showing that a run went through the kernel
+
+_peer_pairs: set[tuple[int, int]] = set()
+
+
+def send_matrix(all_counts: torch.Tensor, n_local: int) -> torch.Tensor:
+    """M[i, c]: how many of rank i's keys go to rank c, from the (P, D)
+    digit counts of every rank (int64 (P, P))."""
+    P = all_counts.shape[0]
+    S_all = _run_starts_global(all_counts)
+    bounds = torch.arange(P + 1, dtype=torch.int64, device=all_counts.device) * n_local
+    below = _slice_counts(S_all, all_counts, bounds[:, None])  # (P+1, P)
+    return (below[1:] - below[:-1]).t().contiguous()
+
+
+def segments(M: torch.Tensor, src: int) -> torch.Tensor:
+    """Rank ``src``'s P segments as a (4, P) int64 tensor: src_start, count,
+    dst_rank, dst_start.  The receive layout is source-major: rank c's
+    slice from src lands after every earlier source's."""
+    row = M[src]
+    dst_start = (torch.cumsum(M, 0) - M)[src]
+    rank = torch.arange(M.shape[1], dtype=torch.int64, device=M.device)
+    return torch.stack([torch.cumsum(row, 0) - row, row, rank, dst_start])
+
+
+def check_receivers(src: torch.Tensor, recv: list) -> None:
+    """What a launch that writes into ``recv`` needs: uint32 keys, at most
+    MAX_RANKS receivers, every tensor on CUDA or every one on the CPU."""
+    check_keys(src)
+    for r in recv:
+        check_keys(r)
+    if not 1 <= len(recv) <= MAX_RANKS:
+        raise ValueError(f"one launch addresses 1 to {MAX_RANKS} receivers, got {len(recv)}")
+    if {src.device.type, *(r.device.type for r in recv)} != {src.device.type}:
+        raise ValueError("the source and the receive buffers must all be on CUDA or all on the CPU")
+
+
+def _check_segments(src: torch.Tensor, segs: torch.Tensor, recv: list) -> None:
+    check_receivers(src, recv)
+    if (segs.dtype != torch.int64 or segs.dim() != 2 or segs.shape[0] != 4
+            or segs.shape[1] < 1 or not segs.is_contiguous()):
+        raise TypeError(f"segments must be a contiguous (4, S) int64 tensor, got "
+                        f"{segs.dtype} {tuple(segs.shape)}")
+    if segs.device != src.device:
+        raise ValueError(f"segments on {segs.device} but the source on {src.device}")
+
+
+def segment_copy_plain(src: torch.Tensor, segs: torch.Tensor, recv: list) -> None:
+    """Plain PyTorch version of :func:`segment_copy`: one slice assignment a
+    segment."""
+    for s0, count, rank, d0 in segs.t().tolist():
+        if count:
+            out = recv[rank].view(torch.int32)
+            out[d0:d0 + count] = src.view(torch.int32)[s0:s0 + count].to(out.device)
+
+
+def segment_copy(src: torch.Tensor, segs: torch.Tensor, recv: list) -> None:
+    """B6: ``src[src_start + k] -> recv[dst_rank][dst_start + k]`` for
+    k < count, for each segment of ``segs`` (in source order, disjoint).
+    Writes into the receive buffers."""
+    global launches
+    _check_segments(src, segs, recv)
+    if src.device.type == "cpu":
+        segment_copy_plain(src, segs, recv)
+        return
+    ptrs = (ctypes.c_longlong * len(recv))(*(r.data_ptr() for r in recv))
+    lib = build.load()
+    with torch.cuda.device(src.device):
+        status = lib.grs_segment_copy_u32(
+            src.data_ptr(), src.numel(), segs.data_ptr(), segs.shape[1], ptrs,
+            len(recv), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(status, "segment_copy launch")
+    launches += 1
+
+
+def _cuda_devices(senders: list, recv: list) -> tuple[list, list]:
+    """The distinct CUDA devices of the senders and of the receivers, or two
+    empty lists when every rank shares one device (or the CPU)."""
+    send_devs = list(dict.fromkeys(s.device for s in senders))
+    recv_devs = list(dict.fromkeys(r.device for r in recv))
+    if len(set(send_devs) | set(recv_devs)) < 2 or send_devs[0].type != "cuda":
+        return [], []
+    return send_devs, recv_devs
+
+
+def begin_sends(senders: list, recv: list) -> None:
+    """Before the sends of a round: peer access for each pair of cards, and
+    every sender's stream waits until each receiver's stream is past the
+    allocation of its buffer (the TPU kernel's entry barrier)."""
+    send_devs, recv_devs = _cuda_devices(senders, recv)
+    for a in send_devs:
+        for b in recv_devs:
+            if a != b and (a.index, b.index) not in _peer_pairs:
+                build.check(build.load().grs_enable_peer_access(a.index, b.index),
+                            f"peer access from {a} to {b}")
+                _peer_pairs.add((a.index, b.index))
+    for b in recv_devs:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(b))
+        for a in send_devs:
+            if a != b:
+                torch.cuda.current_stream(a).wait_event(ready)
+
+
+def end_sends(senders: list, recv: list) -> None:
+    """After the sends: each receiver's stream waits on every sender (the
+    TPU kernel's send and receive drains)."""
+    send_devs, recv_devs = _cuda_devices(senders, recv)
+    for a in send_devs:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(a))
+        for b in recv_devs:
+            if a != b:
+                torch.cuda.current_stream(b).wait_event(done)
+
+
+def exchange_round_rdma_raw(sorted_shards: list, offset: int, width: int):
+    """The ragged exchange without the reassembly sort: takes the
+    digit-sorted shards, returns lists ``(tags, flat, overflowed)`` (the
+    contract of ``exchange.exchange_round_alltoall_raw``): ``flat`` is rank
+    c's receive buffer of exactly n_local keys, ``tags`` their digits (no
+    slot carries the sentinel D), ``overflowed`` False."""
+    n_local = sorted_shards[0].numel()
+    counts = [digit_counts_sorted(s, offset, width) for s in sorted_shards]
+    recv = [torch.empty_like(s) for s in sorted_shards]
+    plans: dict[torch.device, torch.Tensor] = {}  # ranks on one device share M
+    begin_sends(sorted_shards, recv)
+    for i, (s, all_counts) in enumerate(zip(sorted_shards, all_gather(counts))):
+        if s.device not in plans:
+            plans[s.device] = send_matrix(all_counts, n_local)
+        segment_copy(s, segments(plans[s.device], i), recv)
+    end_sends(sorted_shards, recv)
+    tags = [digits_i32(r, offset, width).view(torch.uint32) for r in recv]
+    return tags, recv, [torch.zeros((), dtype=torch.bool, device=r.device) for r in recv]
+
+
+def exchange_round_rdma(shards: list, offset: int, width: int, *,
+                        strategy: str | None = None):
+    """One distributed digit round through the ragged exchange.  Returns
+    (new shards, overflowed per rank): raggedness leaves no capacity to
+    overflow.  With no slack the stable reassembly is a stable digit sort of
+    each receive buffer."""
+    sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
+    _, flat, overflowed = exchange_round_rdma_raw(sorted_shards, offset, width)
+    return [sort_by_digits(f, offset, width, strategy=strategy) for f in flat], overflowed

@@ -5,6 +5,7 @@ kernel's plain version; csrc/block_sort.cu itself is checked against that
 plain version on the card by chip_smoke.py.  Outputs must be equal bytes."""
 
 import re
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -94,7 +95,7 @@ def test_c_entry_points_match_the_ctypes_signatures():
     takes: a pointer passed without c_void_p would be cut to 32 bits."""
     sources = "".join(p.read_text() for p in build._sources())
     assert {p.name for p in build._sources()} == {
-        "binning.cu", "block_sort.cu", "merge_path.cu"}
+        "binning.cu", "block_sort.cu", "exchange.cu", "merge_path.cu"}
     for name, argtypes in build._SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", sources)
         assert m, name
@@ -127,6 +128,20 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert lib == build.library_path() and lib.read_text() == "built\n"
     assert sorted(p.name for p in (tmp_path / "_build").iterdir()) == [lib.name]
     assert build.build() == lib  # built already: nothing runs
+
+
+@pytest.mark.parametrize("edited", ["bitonic.cuh", "exchange.cu"])
+def test_library_name_hashes_sources_and_shared_headers(tmp_path, monkeypatch, edited):
+    """An edit to a shared header builds anew, as an edit to a source does."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert "bitonic.cuh" in {p.name for p in build._headers()}
+    before = build.library_path()
+    assert build.library_path() == before
+    with open(csrc / edited, "a") as f:
+        f.write("\n// edited\n")
+    assert build.library_path() != before
 
 
 def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):

@@ -244,7 +244,7 @@ def test_cli_gen_and_sort_match_jax_file_format(tmp_path, capsys):
     keys = np.fromfile(port_keys, dtype=np.uint32)
     np.testing.assert_array_equal(np.fromfile(out, dtype=np.uint32), np.sort(keys))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli(["sort", "--mode", "mesh", "--n", "10", "--device", "cpu"])
+        port_cli(["sort", "--mode", "sample", "--n", "10", "--device", "cpu"])
 
 
 def test_wall_timer_takes_the_median():
