@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the kernels of gpu_radix_sort_tpu_torch/csrc with nvcc;
+2. builds the kernels of gpu_radix_sort_tpu_torch/csrc with nvcc, and prints
+   what ptxas says of the two counting-sort kernels (digit_sort,
+   group_sort_send: registers, spills) and how many of their blocks fit an
+   SM;
 3. holds block_sort, merge_level, digit_sort and binning against their plain
    PyTorch versions, byte for byte, at small shapes and at the shapes of the
    main paths;
@@ -17,8 +20,9 @@
    stable oracle, its boundaries and its counts; then the kv digit sort
    with an arange column and the one-block digit-sort route;
 6. times each path, its torch.sort yardstick, each kernel and its plain
-   version by the CUDA-event median, and profiles the partial sorts by
-   kernel (torch.profiler);
+   version by the CUDA-event median (the one-block digit_sort and its
+   torch.sort also as a CUDA graph of 20 calls, device time alone), and
+   profiles the partial sorts by kernel (torch.profiler);
 7. holds segment_copy (B6) and group_sort_send (B7) against their plain
    versions byte for byte, on 1 to 8 ranks of one card, schedules from
    uniform, duplicate, presorted, skewed and all-equal keys, and 64Mi keys a
@@ -29,7 +33,7 @@
    four ranks of cuda:0 through "rdma" and "rdma_overlap" the same way, and
    width 16, the collective exchanges, all-equal and typed keys;
 9. times the mesh sorts, one B6 launch and one B7 round, and profiles the
-   one-rank rdma sort by kernel.
+   one-rank rdma sort and the four-rank rdma_overlap sort by kernel.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -49,6 +53,7 @@ across the cards against the same work on as many ranks of cuda:0.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -94,6 +99,74 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     the memory rate and the operations over the peak rate."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+RANK_KERNELS = {"digit_sort_kernel": "block_sort.cu", "group_sort_send_kernel": "exchange.cu"}
+
+
+def start_ptxas_report():
+    """One ``nvcc -Xptxas -v -c`` a source of the counting-sort kernels,
+    started now so that it runs beside the build."""
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sorted(set(RANK_KERNELS.values())):
+        obj = build.BUILD_DIR / f"ptxas.{os.getpid()}.{src}.o"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+               str(build.CSRC / src)]
+        procs.append((obj, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def ptxas_report(procs) -> dict:
+    """What ptxas said of each counting-sort kernel: its frame and spills,
+    and its registers, barriers and static shared memory."""
+    report = {}
+    for obj, proc in procs:
+        _, err = proc.communicate()
+        obj.unlink(missing_ok=True)
+        if proc.returncode:
+            fail(f"nvcc -Xptxas -v failed:\n{err}")
+        name = None
+        for line in err.splitlines():
+            if "Compiling entry function" in line:
+                name = next((k for k in RANK_KERNELS if k in line), None)
+            elif name and ("spill" in line or "Used" in line):
+                report.setdefault(name, []).append(line.split(" : ", 1)[-1].strip())
+    return report
+
+
+def blocks_per_sm(lib, fn: str, *args) -> tuple[int, int]:
+    """(blocks a SM, dynamic shared memory bytes) of a counting-sort kernel
+    at the launch ``args`` describe, from the CUDA occupancy calculator."""
+    import ctypes
+
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(getattr(lib, fn)(*args, ctypes.byref(blocks), ctypes.byref(smem)), fn)
+    return blocks.value, smem.value
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph and replayed between CUDA events (median of 10), so the host
+    work of each call is not counted.  For calls of a few microseconds,
+    where a single call's events mostly time the host."""
+    from gpu_radix_sort_tpu_torch.utils import timers
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # the first call outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return timers.time_cuda(graph.replay) / calls
 
 
 def network_stages(size: int) -> int:
@@ -279,7 +352,7 @@ def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
         for w in widths:
             for G in groups:
                 for name, a in exchange_inputs(rng, P * G * tile):
-                    if name in ("uniform", "skewed"):
+                    if name != "presorted":
                         cases += one(a, tile, w, f"tile={tile} width={w} G={G} {name}")
     a = rng.integers(0, 1 << 32, P * 64 * tiles[-1], dtype=np.uint32)
     shards = shard(torch.from_numpy(a).to(dev), mesh)
@@ -291,10 +364,12 @@ def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
     return cases
 
 
-def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray) -> dict:
+def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
+              b7_info: dict) -> dict:
     """Steps 7-9: the exchange kernels, the mesh LSD sort of ``part`` (256Mi
     PCG32 keys on the card) and their times.  Returns the results for the
-    JSON line."""
+    JSON line (``b7_info``, B7's ptxas report and occupancy, goes into its
+    row)."""
     import gpu_radix_sort_tpu_torch as port
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
@@ -320,8 +395,8 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray) -> d
                                      (1, 3, 64), n_rank)
     log(f"group_sort_send: {b7_cases} launches (send and sort-only) equal to the "
         f"plain version byte for byte (tiles 1024/2048/{ov.MAX_TILE}, widths 1/4/8, "
-        f"G 1/3/64, uniform/skewed, 4 ranks; serial round == overlapped round; "
-        f"n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
+        f"G 1/3/64, uniform/duplicate/skewed/equal, 4 ranks; serial round == "
+        f"overlapped round; n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
 
     counters = {"segment_copy": rx, "group_sort_send": ov, "block_sort": bs,
                 "merge_level": ms, "digit_sort": ds, "binning": bn}
@@ -466,7 +541,7 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray) -> d
     ms_b7_plain = timers.time_cuda(b7_round(shards4, "plain"))
     ms_b7_lib = timers.time_cuda(lambda: torch.sort(rows, dim=1, stable=True))
     ms_b7_sort = timers.time_cuda(lambda: [ov.group_sort(s, tile, 0, 8) for s in shards4])
-    b7_bound = bound(8 * N_MESH, N_MESH // 2 * network_stages(tile))
+    b7_bound = bound(8 * N_MESH, 0)  # a read and a write a key; no network
     log(f"time [{card}]: group_sort_send, one round of {MESH_RANKS} launches over "
         f"{N_MESH} keys (tile {tile}, width 8): overlapped {ms_b7:.3f} ms; serial "
         f"(sort-only launches + segment_copy) {ms_b7_serial:.3f} ms; sort-only "
@@ -475,14 +550,16 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray) -> d
         f"{b7_bound[0]:.3f} ms ({b7_bound[1]})")
     del rows
 
-    prof = device_profile(lambda: fn1(shards1))
-    if prof is None:
-        log(f"profile [{card}]: sort_distributed rdma: the profiler saw no device "
-            f"work (not measured)")
-    else:
+    for what, fn in ((f"rdma, {P1} rank", lambda: fn1(shards1)),
+                     (f"rdma_overlap, {MESH_RANKS} ranks on {dev}", lambda: fn4o(shards4))):
+        prof = device_profile(fn)
+        if prof is None:
+            log(f"profile [{card}]: sort_distributed {what}: the profiler saw no device "
+                f"work (not measured)")
+            continue
         by_name, idle = prof
         total = sum(by_name.values())
-        log(f"profile [{card}]: sort_distributed rdma, {P1} rank, {N_MESH} keys: device "
+        log(f"profile [{card}]: sort_distributed {what}, {N_MESH} keys: device "
             f"{total:.3f} ms a call over 3 calls, idle share {idle:.4f}; top:")
         for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
             log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
@@ -493,7 +570,8 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray) -> d
          {"round4_ms": ms_b6_round, "launches_four_ranks": four_launches["rdma"]["segment_copy"]}),
         ("group_sort_send", "exchange.cu", "gpu_radix_sort_tpu/parallel/rdma_overlap.py:116",
          four_launches["rdma_overlap"]["group_sort_send"], 0, ms_b7, ms_b7_plain, b7_bound,
-         ms_b7_lib, {"serial_ms": ms_b7_serial, "sort_only_ms": ms_b7_sort, "tile": tile}),
+         ms_b7_lib, {"serial_ms": ms_b7_serial, "sort_only_ms": ms_b7_sort, "tile": tile,
+                     **b7_info}),
     ]
     res["n_mesh"] = N_MESH
     return res
@@ -519,9 +597,23 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    build.load()
+    ptxas = start_ptxas_report()
+    lib = build.load()
     log(f"build: {build.library_path().name} ready in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+    rank_info = {name: {"ptxas": lines} for name, lines in ptxas_report(ptxas).items()}
+    rank_info["digit_sort_kernel"]["blocks_per_sm"] = {
+        f"n={ds.MAX_N_KV} w{w}": blocks_per_sm(lib, "grs_digit_sort_blocks_per_sm", ds.MAX_N_KV, w)
+        for w in (8, 17)}
+    rank_info["group_sort_send_kernel"]["blocks_per_sm"] = {
+        f"tile={1 << 14} w8 {what}": blocks_per_sm(
+            lib, "grs_group_sort_send_blocks_per_sm", 1 << 14, 8, nranks)
+        for what, nranks in (("send to 4 ranks", 4), ("sort-only", 0))}
+    for name, info in rank_info.items():
+        log(f"ptxas [{name}]: {'; '.join(info['ptxas'])}")
+        log(f"occupancy [{name}]: " + "; ".join(
+            f"{what}: {b} blocks a SM with {smem} bytes of dynamic shared memory"
+            for what, (b, smem) in info["blocks_per_sm"].items()))
 
     TILE = bs.TILE
     rng = np.random.default_rng(1)
@@ -529,10 +621,14 @@ def main() -> int:
     def on_card(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def inputs(n: int):
+    def inputs(n: int, duplicate: bool = False):
         yield "random", rng.integers(0, 1 << 32, n, dtype=np.uint32)
         yield "equal", np.full(n, 0x9E3779B9, np.uint32)
         yield "all-max", np.full(n, 0xFFFFFFFF, np.uint32)
+        if duplicate:  # four values of every 8-bit window, other bits random
+            few = rng.integers(0, 4, n, dtype=np.uint32) * np.uint32(0x41414141)
+            yield "duplicate", few ^ (rng.integers(0, 1 << 32, n, dtype=np.uint32)
+                                      & np.uint32(0x18181818))
 
     def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> int:
         torch.cuda.synchronize()
@@ -597,7 +693,7 @@ def main() -> int:
     for n in digit_ns:
         for w in digit_widths:
             for offset in sorted({0, (11 * w) % (33 - w), 32 - w}):
-                for name, a in inputs(n):
+                for name, a in inputs(n, duplicate=True):
                     x = on_card(a)
                     err_digit = max(err_digit, compare(
                         ds.sort_by_digits_small(x, offset, w),
@@ -607,7 +703,7 @@ def main() -> int:
                     cases += 1
     log(f"digit_sort: {cases} cases equal to the plain version byte for byte "
         f"(n in {digit_ns}; widths {digit_widths} at three offsets; "
-        f"random/equal/all-max)")
+        f"random/equal/all-max/duplicate)")
 
     # -- binning against its plain version, on the same stage-A output -------
     def bin_compare(x, cols, offset, w, tile, what):
@@ -710,6 +806,8 @@ def main() -> int:
     runs = bs.block_sort(keys, TILE, alternate=True)
     ms_merge = timers.time_cuda(lambda: ms.merge_level(runs, TILE))
     ms_merge_plain = timers.time_cuda(lambda: ms.merge_level_plain(runs, TILE))
+    pairs = runs.view(torch.int32).view(-1, 2 * TILE)
+    ms_merge_lib = timers.time_cuda(lambda: torch.sort(pairs, dim=1))
     one_block = keys[:TILE]
     ms_single = timers.time_cuda(lambda: bs.sort_single_block(one_block))
     ms_single_plain = timers.time_cuda(lambda: bs.block_sort_plain(one_block, TILE))
@@ -723,13 +821,14 @@ def main() -> int:
     log(f"time [{card}]: block_sort pass (tile {TILE}) {ms_block:.3f} ms; "
         f"plain {ms_block_plain:.3f} ms; torch.sort of the rows {ms_block_lib:.3f} ms")
     log(f"time [{card}]: merge_level L={TILE} {ms_merge:.3f} ms; plain "
-        f"{ms_merge_plain:.3f} ms; L={N_MAIN // 2} {ms_merge_top:.3f} ms "
+        f"{ms_merge_plain:.3f} ms; torch.sort of the (n/2L, 2L) rows "
+        f"{ms_merge_lib:.3f} ms; L={N_MAIN // 2} {ms_merge_top:.3f} ms "
         f"({2 * 4 * N_MAIN / (ms_merge * 1e-3) / 1e9:.4g} GB/s moved at L={TILE})")
     log(f"time [{card}]: one-block sort_full of {TILE} keys {ms_single:.4f} ms; "
         f"plain {ms_single_plain:.4f} ms")
     block_bound = bound(8 * N_MAIN, N_MAIN // 2 * network_stages(TILE))
     merge_bound = bound(8 * N_MAIN, N_MAIN)
-    del keys, keys_np, big, out, runs, top, rows, one_block, ints, floats, got, s, b
+    del keys, keys_np, big, out, runs, pairs, top, rows, one_block, ints, floats, got, s, b
     torch.cuda.empty_cache()
 
     # -- the stable partial-sort path ------------------------------------------
@@ -848,14 +947,21 @@ def main() -> int:
         f"moved; bound {bin_bound[0]:.3f} ms); plain {ms_bin_plain:.3f} ms")
     del sk, g_run, sflat
     x_small = part[:ds.MAX_N_KV]
-    d_small = sortable_digits(x_small, 0, 8)
-    ms_ds = timers.time_cuda(lambda: ds.sort_by_digits_small(x_small, 0, 8))
+    d_small, d17 = sortable_digits(x_small, 0, 8), sortable_digits(x_small, 0, 17)
+    ms_ds = graph_ms(lambda: ds.sort_by_digits_small(x_small, 0, 8))
+    ms_ds_lib = graph_ms(lambda: torch.sort(d_small, stable=True))
+    ms_ds17 = graph_ms(lambda: ds.sort_by_digits_small(x_small, 0, 17))
+    ms_ds17_lib = graph_ms(lambda: torch.sort(d17, stable=True))
+    ms_ds_call = timers.time_cuda(lambda: ds.sort_by_digits_small(x_small, 0, 8))
+    ms_ds_lib_call = timers.time_cuda(lambda: torch.sort(d_small, stable=True))
     ms_ds_plain = timers.time_cuda(lambda: ds.sort_by_digits_small_plain(x_small, 0, 8))
-    ms_ds_lib = timers.time_cuda(lambda: torch.sort(d_small, stable=True))
-    digit_bound = bound(8 * ds.MAX_N_KV, ds.MAX_N_KV // 2 * network_stages(ds.MAX_N_KV))
-    log(f"time [{card}]: digit_sort of {ds.MAX_N_KV} keys by 8 bits "
-        f"{ms_ds:.4f} ms; plain {ms_ds_plain:.4f} ms; stable torch.sort of the "
-        f"digits {ms_ds_lib:.4f} ms")
+    digit_bound = bound(8 * ds.MAX_N_KV, 0)  # a read and a write a key; no network
+    log(f"time [{card}]: digit_sort of {ds.MAX_N_KV} keys by 8 bits {ms_ds:.4f} ms a "
+        f"launch (a CUDA graph of 20 calls), stable torch.sort of the digits "
+        f"{ms_ds_lib:.4f} ms a call; by 17 bits (three passes) {ms_ds17:.4f} ms, its "
+        f"torch.sort {ms_ds17_lib:.4f} ms; single calls by CUDA events, host work "
+        f"included: {ms_ds_call:.4f} ms, torch.sort {ms_ds_lib_call:.4f} ms, plain "
+        f"{ms_ds_plain:.4f} ms; bound {digit_bound[0]:.5f} ms")
     log(f"memory [{card}]: stable sort_partial at {N_PART} keys peaks at "
         f"{peak_part:.0f} MiB above the {N_PART * 4 / 2**20:.0f} MiB of keys")
 
@@ -874,7 +980,7 @@ def main() -> int:
 
     del vals
     torch.cuda.empty_cache()
-    mesh = mesh_path(dev, rng, card, part, part_np)
+    mesh = mesh_path(dev, rng, card, part, part_np, rank_info["group_sort_send_kernel"])
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -891,9 +997,12 @@ def main() -> int:
                one_block_ms=ms_single, one_block_plain_ms=ms_single_plain),
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
-               merge_bound, None),
+               merge_bound, ms_merge_lib),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
-               small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib),
+               small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
+               timed="CUDA graph of 20 calls", w17_ms=ms_ds17, w17_library_ms=ms_ds17_lib,
+               single_call_ms=ms_ds_call, single_call_library_ms=ms_ds_lib_call,
+               **rank_info["digit_sort_kernel"]),
         kernel("binning", "binning.cu", "gpu_radix_sort_tpu/ops/pallas_radix.py:205",
                sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
                bin_bound, None, launches_by_width=part_launches,

@@ -1,7 +1,7 @@
-// The in-shared-memory bitonic network shared by the block sorts
-// (csrc/block_sort.cu) and the group sort of the overlapped exchange
-// (csrc/exchange.cu): the counterpart of the JAX package's in-VMEM network,
-// gpu_radix_sort_tpu/ops/pallas_sort.py:68-177 `_bitonic_body`.
+// The in-shared-memory bitonic network of the block sorts (csrc/block_sort.cu,
+// B1 and B3): the counterpart of the JAX package's in-VMEM network,
+// gpu_radix_sort_tpu/ops/pallas_sort.py:68-177 `_bitonic_body`, keys only.
+// The stable digit sorts (B4, B7) rank with csrc/block_rank.cuh instead.
 //
 // Every kernel that runs it launches kNetworkThreads threads a block.
 
@@ -13,11 +13,8 @@ namespace grs {
 
 constexpr int kNetworkThreads = 1024;
 
-// The bitonic network over s[0, size), size a power of two, ascending.  With
-// kPayload, v[i] moves with s[i].  A compare-exchange swaps only when the
-// pair is out of order, so with unique keys the payload order is exact.
-template <bool kPayload>
-__device__ void bitonic_network(uint32_t* s, uint32_t* v, int size) {
+// The bitonic network over s[0, size), size a power of two, ascending.
+__device__ inline void bitonic_network(uint32_t* s, int size) {
   const int half = size >> 1;
   for (int k = 2; k <= size; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
@@ -31,11 +28,6 @@ __device__ void bitonic_network(uint32_t* s, uint32_t* v, int size) {
         if ((a > b) == ascending) {
           s[lo] = b;
           s[hi] = a;
-          if (kPayload) {
-            const uint32_t t = v[lo];
-            v[lo] = v[hi];
-            v[hi] = t;
-          }
         }
       }
       __syncthreads();

@@ -1,4 +1,5 @@
-// Bitonic sort of one tile of uint32 keys per CUDA block, in shared memory.
+// Bitonic sort of one tile of uint32 keys per CUDA block, in shared memory,
+// and the one-block stable digit sort.
 //
 // Replaces three Pallas kernels of the JAX package:
 //   * gpu_radix_sort_tpu/ops/pallas_merge.py:131 `_tile_sort_kernel` (B1): a
@@ -9,7 +10,7 @@
 //     that is a grid of one block with `alternate` off;
 //   * gpu_radix_sort_tpu/ops/pallas_sort.py:185 `_sort_kv_kernel` (B4): the
 //     stable digit sort of n <= 2^14 keys in one block (`digit_sort_kernel`
-//     below), the same network carrying a payload.
+//     below), LSD counting passes of block_rank.cuh.
 //
 // Tile size.  A TPU tile was 2^17 keys (512 KiB of VMEM); a Hopper block has
 // at most 227 KB of shared memory.  The tile is at most 2^14 keys = 64 KB, so
@@ -35,6 +36,7 @@
 #include <stdint.h>
 
 #include "bitonic.cuh"
+#include "block_rank.cuh"
 
 namespace {
 
@@ -56,43 +58,55 @@ block_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
   __syncthreads();
 
-  bitonic_network<false>(s, nullptr, tile);
+  bitonic_network(s, tile);
 
   for (int i = threadIdx.x; i < m; i += kThreads) {
     out[start + i] = s[i] ^ flip;
   }
 }
 
-// B4.  Key i gets the composite digit << pos_bits | i: the composites are
-// unique, so the unstable network sorts them stably by digit, and the key
-// rides as payload.  width + pos_bits < 32 keeps every composite below the
-// 0xFFFFFFFF pads of slots [n, size).  Only the keys are written.  Bound:
-// one block on one SM running up to 105 barrier stages, so it is bound by
-// barrier latency and launch time, far above its 8 bytes a key of device
-// memory traffic; it is the route for small n only.
-__global__ void __launch_bounds__(kThreads)
+// B4.  ceil(width / 8) LSD counting passes of block_rank.cuh over the n
+// keys, 8 bits a pass, the last one narrower; between passes the sorted
+// slots go from shared memory back into registers.  Slots [n, 1024K) hold
+// 0xFFFFFFFF: every digit of such a pad is the largest and the pads come
+// last in input order, so the stable passes keep them last, and they are
+// never written.  Any width up to 32 works.  Bound: one block on one SM, a
+// few microseconds of passes and barriers against 8 bytes a key of device
+// memory, so launch latency bounds it; it is the route for small n only.
+__global__ void __launch_bounds__(grs::kRankThreads)
 digit_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                  int n, int size, int offset, uint32_t mask, int pos_bits) {
-  extern __shared__ uint32_t s[];
-  uint32_t* v = s + size;
-
-  for (int i = threadIdx.x; i < size; i += kThreads) {
-    if (i < n) {
-      const uint32_t key = x[i];
-      s[i] = (((key >> offset) & mask) << pos_bits) | (uint32_t)i;
-      v[i] = key;
-    } else {
-      s[i] = 0xFFFFFFFFu;
-      v[i] = 0u;
+                  int n, int offset, int width) {
+  extern __shared__ __align__(16) uint32_t slots[];
+  const int K = grs::rank_keys_per_thread(n);
+  uint32_t* scratch = slots + K * grs::kRankThreads;
+  uint32_t keys[grs::kMaxKeysPerThread];
+#pragma unroll
+  for (int k = 0; k < grs::kMaxKeysPerThread; ++k) {
+    if (k < K) {
+      const int i = grs::rank_slot(k, K);
+      keys[k] = i < n ? x[i] : 0xFFFFFFFFu;
     }
   }
-  __syncthreads();
-
-  bitonic_network<true>(s, v, size);
-
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    out[i] = v[i];
+  for (int done = 0; done < width; done += grs::kMaxRankWidth) {
+    if (done > 0) {
+#pragma unroll
+      for (int k = 0; k < grs::kMaxKeysPerThread; ++k) {
+        if (k < K) keys[k] = slots[grs::rank_slot(k, K)];
+      }
+    }
+    grs::rank_scatter(keys, K, offset + done,
+                      min(grs::kMaxRankWidth, width - done), slots, scratch);
   }
+  for (int i = threadIdx.x; i < n; i += grs::kRankThreads) {
+    out[i] = slots[i];
+  }
+}
+
+int digit_sort_smem(long long n, int width) {
+  return (grs::rank_keys_per_thread(n) * grs::kRankThreads +
+          grs::rank_scratch_words(width < grs::kMaxRankWidth ? width
+                                                        : grs::kMaxRankWidth)) *
+         (int)sizeof(uint32_t);
 }
 
 }  // namespace
@@ -117,9 +131,9 @@ extern "C" int grs_block_sort_u32(const uint32_t* x, uint32_t* out,
 }
 
 // Stable sort of x[0, n) by bits [offset, offset + width) into out, in one
-// block: n <= 2^14 (composite and key, 8 bytes a slot, fill 128 KB of shared
-// memory at 2^14) and width + log2(next_pow2(n)) < 32.  Launches on
-// `stream`; returns cudaGetLastError().  `out` must not alias `x`.
+// block: n <= 2^14 (the sorted slots and the counters take ~97 KB of shared
+// memory at 2^14).  Launches on `stream`; returns cudaGetLastError().  `out`
+// must not alias `x`.
 extern "C" int grs_digit_sort_u32(const uint32_t* x, uint32_t* out,
                                   long long n, int offset, int width,
                                   cudaStream_t stream) {
@@ -127,18 +141,31 @@ extern "C" int grs_digit_sort_u32(const uint32_t* x, uint32_t* out,
       offset + width > 32) {
     return (int)cudaErrorInvalidValue;
   }
-  int pos_bits = 0;
-  while ((1LL << pos_bits) < n) ++pos_bits;
-  if (width + pos_bits >= 32) return (int)cudaErrorInvalidValue;
-  const int size = 1 << pos_bits;
-  const uint32_t mask = width == 32 ? 0xFFFFFFFFu : (1u << width) - 1u;
-  const int smem = 2 * size * (int)sizeof(uint32_t);
+  const int smem = digit_sort_smem(n, width);
   cudaError_t err = cudaFuncSetAttribute(
       digit_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  digit_sort_kernel<<<1, kThreads, smem, stream>>>(
-      x, out, (int)n, size, offset, mask, pos_bits);
+  digit_sort_kernel<<<1, grs::kRankThreads, smem, stream>>>(
+      x, out, (int)n, offset, width);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory of digit_sort_kernel at n keys and `width` bits
+// into *smem, and the blocks that fit one SM with it
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) into *blocks.
+extern "C" int grs_digit_sort_blocks_per_sm(long long n, int width, int* blocks,
+                                            int* smem_bytes) {
+  if (n <= 0 || n > kMaxTile || width < 1 || width > 32 || blocks == nullptr ||
+      smem_bytes == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = digit_sort_smem(n, width);
+  *smem_bytes = smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      digit_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, digit_sort_kernel, grs::kRankThreads, smem);
 }
 
 // The CUDA runtime's text for an error code returned by the entry points.

@@ -14,12 +14,13 @@
 //   * gpu_radix_sort_tpu/parallel/rdma_overlap.py:116 `_xchg_overlap_kernel`
 //     (B7): for each group of `tile` keys, a stable digit sort and that
 //     group's sends.  Here `group_sort_send_kernel`, one block per group:
-//     the bitonic network of bitonic.cuh sorts the unique composites
-//     digit * tile + rank with the key as payload, then the block stores each
-//     destination's slice of its sorted tile straight from shared memory into
-//     that receiver's buffer.  No staging: the card overlaps the stores of
-//     early blocks with the sorting of later ones.  With `stage` set the
-//     kernel only sorts, into stage (the serial A/B mode; B6 then sends).
+//     the counting sort of block_rank.cuh ranks the keys by their digit
+//     (width <= 8, one pass) and scatters them into shared memory, then the
+//     block stores each destination's slice of its sorted tile straight from
+//     shared memory into that receiver's buffer.  No staging: the card
+//     overlaps the stores of early blocks with the sorting of later ones.
+//     With `stage` set the kernel only sorts, into stage (the serial A/B
+//     mode; B6 then sends).
 //
 // The receivers' base addresses travel by value in the kernel's parameters
 // (RankTable, kMaxRanks pointers): building a device table from the host
@@ -31,23 +32,24 @@
 // a key: bound by device-memory bandwidth.  Each block copies kCopyChunk
 // keys: one thread searches the segment range of the chunk's ends, then
 // every key searches that (usually one or two segment) range, so loads and
-// stores are coalesced within a segment.  group_sort_send runs the
-// log2(T)(log2(T)+1)/2 stages of the network in shared memory (105 at
-// T = 2^14), like block_sort, so it is bound by shared-memory traffic and
-// barriers; device memory sees 8 bytes a key.  The destinations of all
-// stores are disjoint (the counts-derived layout), so there are no atomics.
+// stores are coalesced within a segment.  group_sort_send reads each key
+// once into registers and stores it once from shared memory, 8 bytes a key
+// of device memory, with two ballot passes, a scan and three barriers in
+// between (block_rank.cuh); its shared memory (~97 KB at 2^14 keys and 8
+// bits, plus 16 bytes a receiver for the schedule) lets two blocks share an
+// SM, so one block's loads and stores overlap the other's ranking.  The
+// destinations of all stores are disjoint (the counts-derived layout), so
+// there are no atomics in device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bitonic.cuh"
+#include "block_rank.cuh"
 
 namespace {
 
-using grs::bitonic_network;
-
-constexpr int kThreads = grs::kNetworkThreads;
-constexpr int kMaxTile = 1 << 14;  // 2 x 4 bytes a key: 128 KB of shared memory
+constexpr int kThreads = grs::kRankThreads;
+constexpr int kMaxTile = 1 << 14;  // keys a block ranks (16 a thread)
 constexpr int kMaxRanks = 256;     // receivers a launch addresses (2 KB of parameters)
 constexpr int kCopyThreads = 256;
 constexpr int kCopyChunk = 4096;   // keys a segment_copy block moves
@@ -105,23 +107,29 @@ segment_copy_kernel(const uint32_t* __restrict__ src, long long n_src,
 // destination c's slice in group g's sorted tile (start[g, 0] = 0, ascending
 // in c, the slices tile the group), and dst_start[g, c], where that slice
 // lands in receiver c's buffer.  With stage set, sched and dst are unused.
-__global__ void __launch_bounds__(kThreads)
-group_sort_send_kernel(const uint32_t* __restrict__ x, int tile, int log_tile,
-                       int offset, uint32_t mask,
-                       const long long* __restrict__ sched, long long n_groups,
-                       int nranks, const RankTable dst,
+// A tile below 1024 keys fills the block's slots with 0xFFFFFFFF pads, which
+// sort last and are never stored.
+__global__ void __launch_bounds__(kThreads, 2)
+group_sort_send_kernel(const uint32_t* __restrict__ x, int tile, int offset,
+                       int width, const long long* __restrict__ sched,
+                       long long n_groups, int nranks, const RankTable dst,
                        uint32_t* __restrict__ stage) {
-  extern __shared__ uint32_t s[];
-  uint32_t* v = s + tile;
-  long long* row_start = reinterpret_cast<long long*>(v + tile);
+  extern __shared__ __align__(16) uint32_t s[];
+  const int K = grs::rank_keys_per_thread(tile);
+  uint32_t* scratch = s + K * kThreads;
+  long long* row_start =
+      reinterpret_cast<long long*>(scratch + grs::rank_scratch_words(width));
   long long* row_dst = row_start + nranks;
   const long long g = blockIdx.x;
   const long long base = g * tile;
 
-  for (int i = threadIdx.x; i < tile; i += kThreads) {
-    const uint32_t key = x[base + i];
-    s[i] = (((key >> offset) & mask) << log_tile) | (uint32_t)i;
-    v[i] = key;
+  uint32_t keys[grs::kMaxKeysPerThread];
+#pragma unroll
+  for (int k = 0; k < grs::kMaxKeysPerThread; ++k) {
+    if (k < K) {
+      const int i = grs::rank_slot(k, K);
+      keys[k] = i < tile ? x[base + i] : 0xFFFFFFFFu;
+    }
   }
   if (stage == nullptr) {
     for (int c = threadIdx.x; c < nranks; c += kThreads) {
@@ -129,18 +137,23 @@ group_sort_send_kernel(const uint32_t* __restrict__ x, int tile, int log_tile,
       row_dst[c] = sched[(n_groups + g) * nranks + c];
     }
   }
-  __syncthreads();
-
-  bitonic_network<true>(s, v, tile);
+  // Its first barrier also publishes the schedule rows.
+  grs::rank_scatter(keys, K, offset, width, s, scratch);
 
   if (stage != nullptr) {
-    for (int i = threadIdx.x; i < tile; i += kThreads) stage[base + i] = v[i];
+    for (int i = threadIdx.x; i < tile; i += kThreads) stage[base + i] = s[i];
     return;
   }
   for (int i = threadIdx.x; i < tile; i += kThreads) {
     const int c = last_at_or_below(row_start, 0, nranks - 1, i);
-    dst.base[c][row_dst[c] + (i - row_start[c])] = v[i];
+    dst.base[c][row_dst[c] + (i - row_start[c])] = s[i];
   }
+}
+
+int group_sort_send_smem(int tile, int width, int nranks, bool send) {
+  return (grs::rank_keys_per_thread(tile) * kThreads +
+          grs::rank_scratch_words(width)) * (int)sizeof(uint32_t) +
+         (send ? 2 * nranks * (int)sizeof(long long) : 0);
 }
 
 int fill_table(RankTable* table, const long long* dst_ptrs, int nranks) {
@@ -199,18 +212,33 @@ extern "C" int grs_group_sort_send_u32(const uint32_t* x, long long n, int tile,
     const int bad = fill_table(&table, dst_ptrs, nranks);
     if (bad) return bad;
   }
-  int log_tile = 0;
-  while ((1 << log_tile) < tile) ++log_tile;
   const long long n_groups = n / tile;
-  const int smem = 2 * tile * (int)sizeof(uint32_t) +
-                   (stage == nullptr ? 2 * nranks * (int)sizeof(long long) : 0);
+  const int smem = group_sort_send_smem(tile, width, nranks, stage == nullptr);
   cudaError_t err = cudaFuncSetAttribute(
       group_sort_send_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   group_sort_send_kernel<<<(unsigned)n_groups, kThreads, smem, stream>>>(
-      x, tile, log_tile, offset, (1u << width) - 1u, sched, n_groups, nranks,
-      table, stage);
+      x, tile, offset, width, sched, n_groups, nranks, table, stage);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory of group_sort_send_kernel at this tile, width
+// and number of receivers (0: the sort-only mode) into *smem, and the blocks
+// that fit one SM with it (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// into *blocks.
+extern "C" int grs_group_sort_send_blocks_per_sm(int tile, int width, int nranks,
+                                                 int* blocks, int* smem_bytes) {
+  if (tile < 2 || tile > kMaxTile || width < 1 || width > 8 || nranks < 0 ||
+      nranks > kMaxRanks || blocks == nullptr || smem_bytes == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = group_sort_send_smem(tile, width, nranks, nranks > 0);
+  *smem_bytes = smem;
+  cudaError_t err = cudaFuncSetAttribute(
+      group_sort_send_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, group_sort_send_kernel, kThreads, smem);
 }
 
 // Lets `device` write into `peer`'s memory (once for each ordered pair; a

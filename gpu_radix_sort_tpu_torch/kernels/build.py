@@ -54,6 +54,11 @@ _SIGNATURES = {
                                 _P, _P, _P),
     # (device, peer)
     "grs_enable_peer_access": (ctypes.c_int, ctypes.c_int),
+    # (n, width, blocks, smem_bytes)
+    "grs_digit_sort_blocks_per_sm": (ctypes.c_longlong, ctypes.c_int, _P, _P),
+    # (tile, width, nranks, blocks, smem_bytes)
+    "grs_group_sort_send_blocks_per_sm": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          _P, _P),
 }
 
 

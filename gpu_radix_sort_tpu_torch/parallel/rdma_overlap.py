@@ -8,8 +8,11 @@ stage it to HBM, start its remote chunk DMAs without waiting; the last group
 drained everything.  Here:
 
   * the shard is split into G groups of ``tile`` keys, a power of two at
-    most MAX_TILE = 2^14: a block sorts composite and key in shared memory,
-    8 bytes a slot, 128 KB at 2^14 (the TPU's cap, 2^16, was a VMEM limit);
+    most MAX_TILE = 2^14 (the TPU's cap, 2^16, was a VMEM limit): a block of
+    1024 threads holds 16 keys a thread in registers, ranks them by digit
+    with the counting sort of ``csrc/block_rank.cuh`` (no composite key) and
+    scatters them into shared memory, ~97 KB at 2^14 keys and 8 bits, so two
+    blocks share an SM;
   * the (G, D) group histograms are torch ops (an ``index_add_`` of ones
     at ``group * D + digit``; XLA code in the JAX package), all-gathered to
     (P, G, D), which gives ``M[src, group, dst]`` and the receive layout
@@ -34,6 +37,8 @@ n_local up to GRAIN = 1024, so a power-of-two tile divides it).
 On a CPU tensor the wrappers run their plain versions (a stable
 ``torch.sort`` of the (G, tile) digit rows and a gather, then
 ``segment_copy_plain``); on CUDA tensors they launch the kernel or raise.
+:func:`sort_groups_emulated` repeats the kernel's ranking in torch, for the
+CPU tests of its arithmetic.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from ..kernels import build
 from ..ops.bits import sortable_digits, validate_digit_range
 from ..ops.block_sort import check_keys
+from ..ops.digit_sort import sort_by_digits_small_emulated
 from ..ops.radix_sort import sort_by_digits
 from .exchange import _run_starts_global, _slice_counts, digits_i32
 from .mesh import all_gather
@@ -52,7 +58,7 @@ from .rdma_exchange import (
     begin_sends, check_receivers, end_sends, segment_copy, segment_copy_plain,
 )
 
-MAX_TILE = 1 << 14  # keys a block sorts (kMaxTile in csrc/exchange.cu)
+MAX_TILE = 1 << 14  # keys a block ranks (kMaxTile in csrc/exchange.cu)
 GRAIN = 1024  # the smallest tile; sort_distributed rounds n_local up to it
 MAX_WIDTH = 8
 
@@ -134,6 +140,15 @@ def sort_groups_plain(x: torch.Tensor, tile: int, offset: int, width: int) -> to
     order = torch.sort(sortable_digits(x.view(-1, tile), offset, width), dim=1,
                        stable=True).indices
     return x.view(torch.int32).view(-1, tile).gather(1, order).reshape(-1).view(torch.uint32)
+
+
+def sort_groups_emulated(x: torch.Tensor, tile: int, offset: int, width: int) -> torch.Tensor:
+    """``group_sort_send_kernel``'s sort on CPU tensors: each group is one
+    ranking block, padded as ``digit_sort_kernel`` pads its keys and ranked
+    in its single pass (width <= 8), so
+    :func:`~..ops.digit_sort.sort_by_digits_small_emulated` a group."""
+    return torch.cat([sort_by_digits_small_emulated(g, offset, width)
+                      for g in x.view(-1, tile)])
 
 
 def group_sort_send_plain(x: torch.Tensor, tile: int, offset: int, width: int,

@@ -130,7 +130,7 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert build.build() == lib  # built already: nothing runs
 
 
-@pytest.mark.parametrize("edited", ["bitonic.cuh", "exchange.cu"])
+@pytest.mark.parametrize("edited", ["bitonic.cuh", "block_rank.cuh", "exchange.cu"])
 def test_library_name_hashes_sources_and_shared_headers(tmp_path, monkeypatch, edited):
     """An edit to a shared header builds anew, as an edit to a source does."""
     csrc = tmp_path / "csrc"
