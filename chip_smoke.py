@@ -5,35 +5,42 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels of gpu_radix_sort_tpu_torch/csrc with nvcc, and prints
-   what ptxas says of the two counting-sort kernels (digit_sort,
-   group_sort_send: registers, spills) and how many of their blocks fit an
-   SM;
-3. holds block_sort, merge_level, digit_sort and binning against their plain
+   what ptxas says of the counting-sort kernels (digit_sort,
+   group_sort_send), the one-block register network (single_block_sort at
+   2^14 keys) and segment_copy: registers, spills; and how many blocks of
+   the counting sorts fit an SM;
+3. holds block_sort, single_block_sort (n from 1 to 2^14, aligned and
+   shifted input), merge_level, digit_sort and binning against their plain
    PyTorch versions, byte for byte, at small shapes and at the shapes of the
    main paths;
 4. drives the first main path -- sort_full of 64M PCG32 keys -- with the
    launch counts set to 0 just before and read just after, exact against
-   np.sort; then a ragged n, the one-block route, int32/float32 keys and
-   sort_partial(stable=False) against the reference's boundary contract;
+   np.sort; then a ragged n, the one-block route (single_block_sort, its
+   launch count), int32/float32 keys and sort_partial(stable=False) against
+   the reference's boundary contract;
 5. drives the second main path -- the stable sort_partial of 256Mi PCG32
    keys at widths 4, 8 and 16 -- the same way, exact against the numpy
    stable oracle, its boundaries and its counts; then the kv digit sort
    with an arange column and the one-block digit-sort route;
 6. times each path, its torch.sort yardstick, each kernel and its plain
-   version by the CUDA-event median (the one-block digit_sort and its
-   torch.sort also as a CUDA graph of 20 calls, device time alone), and
-   profiles the partial sorts by kernel (torch.profiler);
+   version by the CUDA-event median (the one-block sorts and their
+   torch.sort also as a CUDA graph of 20 calls, device time alone, beside
+   the one-block counting route and the old shared-memory network), B5's
+   library call (a stable torch.sort of the digits), and profiles the
+   partial sorts by kernel (torch.profiler);
 7. holds segment_copy (B6) and group_sort_send (B7) against their plain
    versions byte for byte, on 1 to 8 ranks of one card, schedules from
-   uniform, duplicate, presorted, skewed and all-equal keys, and 64Mi keys a
-   rank on 4 ranks;
+   uniform, duplicate, presorted, skewed and all-equal keys, 64Mi keys a
+   rank on 4 ranks, and B6 at every word offset of source and receivers
+   past a 16-byte boundary on 1 and 4 ranks;
 8. drives the third main path -- sort_distributed of the same 256Mi keys at
    width 8 through exchange="rdma" on key_mesh() -- with the launch counts
    set to 0 just before and read just after, exact against np.sort; then on
    four ranks of cuda:0 through "rdma" and "rdma_overlap" the same way, and
    width 16, the collective exchanges, all-equal and typed keys;
-9. times the mesh sorts, one B6 launch and one B7 round, and profiles the
-   one-rank rdma sort and the four-rank rdma_overlap sort by kernel.
+9. times the mesh sorts, one B6 launch (destination aligned and shifted by
+   one key, beside copy_ of the same bytes) and one B7 round, and profiles
+   the one-rank rdma sort and the four-rank rdma_overlap sort by kernel.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -44,7 +51,8 @@ Without a CUDA device it exits 1 and prints no result.
 runs only the mesh LSD sort across every visible card (two or more), the
 route one card cannot reach: B6 and B7 store through peer access into the
 other cards' buffers, and events order the cards' streams.  It holds both
-kernels against their plain versions across cards, sorts the same 256Mi
+kernels against their plain versions across cards (B6 also at every word
+offset of source and receivers past a 16-byte boundary), sorts the same 256Mi
 keys exactly through rdma, rdma_overlap and alltoall with launch counts,
 and times each sort, a B6 round and a B7 round (overlapped and serial)
 across the cards against the same work on as many ranks of cuda:0.
@@ -101,17 +109,24 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-RANK_KERNELS = {"digit_sort_kernel": "block_sort.cu", "group_sort_send_kernel": "exchange.cu"}
+# Kernels whose ptxas report is printed: name -> (text of its entry's
+# mangled name, source); the register network at 2^14 keys.
+PTXAS_KERNELS = {
+    "digit_sort_kernel": ("digit_sort_kernel", "block_sort.cu"),
+    "group_sort_send_kernel": ("group_sort_send_kernel", "exchange.cu"),
+    "single_block_sort_kernel<14>": ("single_block_sort_kernelILi14E", "block_sort.cu"),
+    "segment_copy_kernel": ("segment_copy_kernel", "exchange.cu"),
+}
 
 
 def start_ptxas_report():
-    """One ``nvcc -Xptxas -v -c`` a source of the counting-sort kernels,
+    """One ``nvcc -Xptxas -v -c`` a source of the kernels of PTXAS_KERNELS,
     started now so that it runs beside the build."""
     from gpu_radix_sort_tpu_torch.kernels import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for src in sorted(set(RANK_KERNELS.values())):
+    for src in sorted({src for _, src in PTXAS_KERNELS.values()}):
         obj = build.BUILD_DIR / f"ptxas.{os.getpid()}.{src}.o"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
                str(build.CSRC / src)]
@@ -121,8 +136,8 @@ def start_ptxas_report():
 
 
 def ptxas_report(procs) -> dict:
-    """What ptxas said of each counting-sort kernel: its frame and spills,
-    and its registers, barriers and static shared memory."""
+    """What ptxas said of each kernel of PTXAS_KERNELS: its frame and
+    spills, and its registers, barriers and static shared memory."""
     report = {}
     for obj, proc in procs:
         _, err = proc.communicate()
@@ -132,7 +147,7 @@ def ptxas_report(procs) -> dict:
         name = None
         for line in err.splitlines():
             if "Compiling entry function" in line:
-                name = next((k for k in RANK_KERNELS if k in line), None)
+                name = next((k for k, (key, _) in PTXAS_KERNELS.items() if key in line), None)
             elif name and ("spill" in line or "Used" in line):
                 report.setdefault(name, []).append(line.split(" : ", 1)[-1].strip())
     return report
@@ -167,6 +182,18 @@ def graph_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
     return timers.time_cuda(graph.replay) / calls
+
+
+def back_to_back_ms(fn, calls: int = 10) -> float:
+    """Milliseconds a call of ``fn``: ``calls`` calls back to back between
+    CUDA events (median of 10).  For calls of a millisecond or so whose
+    host work is tens of microseconds: it runs while the previous call's
+    kernel does, so only the first call's shows, a ``calls``-th of it.
+    (A CUDA graph would turn copy_ into a memcpy node, which the copy
+    engines run more slowly than copy_'s kernel.)"""
+    from gpu_radix_sort_tpu_torch.utils import timers
+
+    return timers.time_cuda(lambda: [fn() for _ in range(calls)]) / calls
 
 
 def network_stages(size: int) -> int:
@@ -320,6 +347,45 @@ def check_segment_copy(dev, rng, ranks, n_small: int, n_big: int) -> int:
     return cases
 
 
+def check_segment_alignment(devs: list, rng, n_local: int) -> int:
+    """B6 byte for byte against segment_copy_plain at every word offset of
+    the source and of the receivers past a 16-byte boundary (4 x 4, the
+    receivers' offsets staggered by rank), P = len(devs) ranks with rank c's
+    buffers on devs[c], schedules from uniform keys.  Returns the number of
+    launches compared."""
+    from gpu_radix_sort_tpu_torch.ops.boundaries import digit_counts_sorted
+    from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+
+    P = len(devs)
+    x = torch.from_numpy(rng.integers(0, 1 << 32, P * n_local, dtype=np.uint32)).view(P, -1)
+    shards = [sort_by_digits(x[i].contiguous(), 8, 8) for i in range(P)]  # on the CPU
+    M = rx.send_matrix(torch.stack([digit_counts_sorted(s, 8, 8) for s in shards]), n_local)
+
+    def placed(a: torch.Tensor, dev, shift: int) -> torch.Tensor:
+        """a on dev, starting ``shift`` keys past a 16-byte boundary."""
+        pad = np.zeros(shift, np.uint32)
+        return torch.from_numpy(np.concatenate([pad, a.numpy()])).to(dev)[shift:]
+
+    cases = 0
+    for src_shift in range(4):
+        for dst_shift in range(4):
+            for i in range(P):
+                segs = rx.segments(M, i)
+                want = [torch.zeros(n_local, dtype=torch.uint32) for _ in range(P)]
+                rx.segment_copy_plain(shards[i], segs, want)
+                src = placed(shards[i], devs[i], src_shift)
+                got = [placed(torch.zeros(n_local, dtype=torch.uint32), devs[c],
+                              (dst_shift + c) % 4) for c in range(P)]
+                rx.begin_sends([src], got)
+                rx.segment_copy(src, segs.to(devs[i]), got)
+                rx.end_sends([src], got)
+                same_bytes(got, want, f"segment_copy P={P} sender {i} source shift "
+                                      f"{src_shift} receiver shift {dst_shift}")
+                cases += 1
+    return cases
+
+
 def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
     """B7 byte for byte against its plain version on 4 ranks, in both modes
     (send, and sort-only into a staging buffer); the serial round equal to
@@ -365,17 +431,18 @@ def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
 
 
 def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
-              b7_info: dict) -> dict:
+              b6_info: dict, b7_info: dict) -> dict:
     """Steps 7-9: the exchange kernels, the mesh LSD sort of ``part`` (256Mi
     PCG32 keys on the card) and their times.  Returns the results for the
-    JSON line (``b7_info``, B7's ptxas report and occupancy, goes into its
-    row)."""
+    JSON line (``b6_info`` and ``b7_info``, the kernels' ptxas reports and
+    B7's occupancy, go into their rows)."""
     import gpu_radix_sort_tpu_torch as port
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits
     from gpu_radix_sort_tpu_torch.ops.boundaries import digit_counts
     from gpu_radix_sort_tpu_torch.parallel import distributed as dist
@@ -387,9 +454,13 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     n_rank = N_MESH // MESH_RANKS
     t0 = time.perf_counter()
     b6_cases = check_segment_copy(dev, rng, (1, 2, 4, 8), 1000, n_rank)
+    n_align = 3 * rx.COPY_CHUNK + 5
+    b6_align = sum(check_segment_alignment([dev] * P, rng, n_align) for P in (1, MESH_RANKS))
     log(f"segment_copy: {b6_cases} launches equal to the plain version byte for "
         f"byte (P in (1, 2, 4, 8), n_local 1000, uniform/duplicate/presorted/"
-        f"skewed/equal; P=4 at n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
+        f"skewed/equal; P=4 at n_local={n_rank}); {b6_align} more at every source "
+        f"x receiver word offset past a 16-byte boundary (P 1 and {MESH_RANKS}, "
+        f"n_local={n_align}) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     b7_cases = check_group_sort_send(dev, rng, (1024, 2048, ov.MAX_TILE), (1, 4, 8),
                                      (1, 3, 64), n_rank)
@@ -399,7 +470,7 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
         f"overlapped round; n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
 
     counters = {"segment_copy": rx, "group_sort_send": ov, "block_sort": bs,
-                "merge_level": ms, "digit_sort": ds, "binning": bn}
+                "merge_level": ms, "digit_sort": ds, "binning": bn, "single_block_sort": sb}
 
     def zero() -> None:
         for mod in counters.values():
@@ -434,7 +505,7 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     peak = (torch.cuda.max_memory_allocated() - held) / 2**20
     expect = {"segment_copy": nsteps * P1, "group_sort_send": 0,
               "block_sort": (nsteps + 1) * P1, "merge_level": (nsteps + 1) * P1 * levels,
-              "digit_sort": 0, "binning": 0}
+              "digit_sort": 0, "binning": 0, "single_block_sort": 0}
     log(f"main path: sort_distributed(width=8, exchange='rdma') of {N_MESH} PCG32 keys "
         f"on key_mesh() ({P1} rank), launches {main_launches}; first call "
         f"{first_ms:.1f} ms by host clock; peak device memory {peak:.0f} MiB above "
@@ -452,10 +523,10 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
         "rdma": {"segment_copy": nsteps * MESH_RANKS, "group_sort_send": 0,
                  "block_sort": (nsteps + 1) * MESH_RANKS,
                  "merge_level": (nsteps + 1) * MESH_RANKS * levels4,
-                 "digit_sort": 0, "binning": 0},
+                 "digit_sort": 0, "binning": 0, "single_block_sort": 0},
         "rdma_overlap": {"segment_copy": 0, "group_sort_send": nsteps * MESH_RANKS,
                          "block_sort": 0, "merge_level": 0, "digit_sort": 0,
-                         "binning": nsteps * MESH_RANKS * 2},
+                         "binning": nsteps * MESH_RANKS * 2, "single_block_sort": 0},
     }
     four_launches = {}
     for exchange, expect in four.items():
@@ -518,20 +589,36 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     log(f"time [{card}]: {MESH_RANKS} ranks on one card: rdma {res['mesh4_rdma_ms']:.3f} "
         f"ms; rdma_overlap {res['mesh4_rdma_overlap_ms']:.3f} ms")
 
-    # B6: one launch over the whole shard (one rank: one segment of 256Mi)
+    # B6: one launch over the whole shard (one rank: one segment of 256Mi),
+    # into a receiver aligned to 16 bytes and into one shifted by a key,
+    # beside copy_ of the same bytes, in turns; 10 calls back to back, as the
+    # wrapper's host work would show in a single call
     segs1 = rx.segments(rx.send_matrix(digit_counts(part, 0, 8)[None], N_MESH), 0)
     recv1 = [torch.empty_like(part)]
-    ms_b6 = timers.time_cuda(lambda: rx.segment_copy(part, segs1, recv1))
+    recv1s = [torch.empty(N_MESH + 4, dtype=torch.uint32, device=dev)[1:N_MESH + 1]]
+    turns = {"copy": lambda: recv1[0].copy_(part),
+             "b6": lambda: rx.segment_copy(part, segs1, recv1),
+             "b6_shifted": lambda: rx.segment_copy(part, segs1, recv1s),
+             "copy_shifted": lambda: recv1s[0].copy_(part)}
+    order = list(turns) + list(turns)[::-1]
+    times = {name: [] for name in turns}
+    for name in order:
+        times[name].append(back_to_back_ms(turns[name]))
+    ms_copy, ms_b6, ms_b6_shift, ms_copy_shift = (sum(v) / len(v) for v in times.values())
+    ms_b6_call = timers.time_cuda(turns["b6"])
     ms_b6_plain = timers.time_cuda(lambda: rx.segment_copy_plain(part, segs1, recv1))
-    ms_copy = timers.time_cuda(lambda: recv1[0].copy_(part))
     b6_bound = bound(8 * N_MESH, 0)
     # ... and one round's four launches on four ranks (4 segments each)
     ms_b6_round = timers.time_cuda(b6_round(shards4))
     log(f"time [{card}]: segment_copy one launch of {N_MESH} keys {ms_b6:.3f} ms "
         f"({8 * N_MESH / (ms_b6 * 1e-3) / 1e9:.4g} GB/s moved; bound {b6_bound[0]:.3f} "
-        f"ms); plain {ms_b6_plain:.3f} ms; copy_ of the same bytes {ms_copy:.3f} ms; "
-        f"a {MESH_RANKS}-rank round (4 launches, 4 segments each) {ms_b6_round:.3f} ms")
-    del recv1
+        f"ms), into a receiver shifted by one key {ms_b6_shift:.3f} ms; copy_ of the "
+        f"same bytes {ms_copy:.3f} ms, shifted {ms_copy_shift:.3f} ms (10 calls back "
+        f"to back; each the mean of two medians, in turns: "
+        f"{ {k: [round(x, 4) for x in v] for k, v in times.items()} }); a single "
+        f"call by CUDA events {ms_b6_call:.3f} ms; plain {ms_b6_plain:.3f} ms; a "
+        f"{MESH_RANKS}-rank round (4 launches, 4 segments each) {ms_b6_round:.3f} ms")
+    del recv1, recv1s
 
     # B7: one round on four ranks, overlapped and serial
     tile = ov.pick_tile(n_rank)
@@ -567,7 +654,10 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     res["kernels"] = [
         ("segment_copy", "exchange.cu", "gpu_radix_sort_tpu/parallel/rdma_exchange.py:60",
          main_launches["segment_copy"], 0, ms_b6, ms_b6_plain, b6_bound, ms_copy,
-         {"round4_ms": ms_b6_round, "launches_four_ranks": four_launches["rdma"]["segment_copy"]}),
+         {"round4_ms": ms_b6_round, "launches_four_ranks": four_launches["rdma"]["segment_copy"],
+          "timed": "10 calls back to back", "single_call_ms": ms_b6_call,
+          "shifted_ms": ms_b6_shift, "copy_shifted_ms": ms_copy_shift, "turns": times,
+          **b6_info}),
         ("group_sort_send", "exchange.cu", "gpu_radix_sort_tpu/parallel/rdma_overlap.py:116",
          four_launches["rdma_overlap"]["group_sort_send"], 0, ms_b7, ms_b7_plain, b7_bound,
          ms_b7_lib, {"serial_ms": ms_b7_serial, "sort_only_ms": ms_b7_sort, "tile": tile,
@@ -588,6 +678,7 @@ def main() -> int:
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits, to_int64
     from gpu_radix_sort_tpu_torch.utils import checks, keygen, timers
 
@@ -611,9 +702,10 @@ def main() -> int:
         for what, nranks in (("send to 4 ranks", 4), ("sort-only", 0))}
     for name, info in rank_info.items():
         log(f"ptxas [{name}]: {'; '.join(info['ptxas'])}")
-        log(f"occupancy [{name}]: " + "; ".join(
-            f"{what}: {b} blocks a SM with {smem} bytes of dynamic shared memory"
-            for what, (b, smem) in info["blocks_per_sm"].items()))
+        if "blocks_per_sm" in info:
+            log(f"occupancy [{name}]: " + "; ".join(
+                f"{what}: {b} blocks a SM with {smem} bytes of dynamic shared memory"
+                for what, (b, smem) in info["blocks_per_sm"].items()))
 
     TILE = bs.TILE
     rng = np.random.default_rng(1)
@@ -661,6 +753,24 @@ def main() -> int:
     ))
     log(f"block_sort: {cases + 1} cases equal to the plain version byte for byte "
         f"(n in {small_n} and {N_MAIN}; tiles; alternate on/off; random/equal/all-max)")
+
+    # -- single_block_sort against its plain version ----------------------------
+    err_single, cases = 0, 0
+    single_ns = (1, 2, 3, 16, 31, 511, 512, 513, 1000, 1024, 2047, 4096, 4099, 8192,
+                 12345, TILE - 1, TILE)
+    for n in single_ns:
+        for name, a in inputs(n, duplicate=True):
+            # the keys as given (16-byte aligned), then one key past that
+            # (key-by-key loads and stores)
+            for shift in (0, 1):
+                x = on_card(np.concatenate([np.zeros(shift, np.uint32), a]))[shift:]
+                err_single = max(err_single, compare(
+                    sb.sort_single_block(x), sb.sort_single_block_plain(x),
+                    f"single_block_sort n={n} shift={shift} {name}"))
+                cases += 1
+    log(f"single_block_sort: {cases} cases equal to the plain version byte for byte "
+        f"(n in {single_ns}; random/equal/all-max/duplicate; input aligned and "
+        f"shifted by one key)")
 
     # -- merge_level against its plain version -----------------------------
     err_merge, cases = 0, 0
@@ -739,14 +849,15 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    bs.launches = ms.launches = ds.launches = bn.launches = 0
+    bs.launches = ms.launches = ds.launches = bn.launches = sb.launches = 0
     t0 = time.perf_counter()
     out = rs.sort_full(keys)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = {"block_sort": bs.launches, "merge_level": ms.launches}
-    if ds.launches or bn.launches:
-        fail(f"sort_full launched digit_sort {ds.launches}, binning {bn.launches}")
+    if ds.launches or bn.launches or sb.launches:
+        fail(f"sort_full launched digit_sort {ds.launches}, binning {bn.launches}, "
+             f"single_block_sort {sb.launches}")
     peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
     levels = (N_MAIN // TILE - 1).bit_length()
     log(f"main path: sort_full of {N_MAIN} PCG32 keys, launches {launches} "
@@ -766,12 +877,13 @@ def main() -> int:
         fail(f"sort_full of {n_ragged} keys differs from np.sort")
     del out
 
-    bs.launches = 0
-    ms.launches = 0
+    bs.launches = ms.launches = sb.launches = 0
     n_small = TILE - 3
     out = rs.sort_full(keys[:n_small])
-    if (bs.launches, ms.launches) != (1, 0):
-        fail(f"n={n_small} took {bs.launches} block and {ms.launches} merge launches")
+    single_launches = sb.launches
+    if (sb.launches, bs.launches, ms.launches) != (1, 0, 0):
+        fail(f"n={n_small} took {sb.launches} single-block, {bs.launches} block and "
+             f"{ms.launches} merge launches; expected one single-block launch")
     if not checks.check_sort_full(out.cpu().numpy(), keys_np[:n_small]):
         fail(f"sort_full of {n_small} keys differs from np.sort")
 
@@ -791,7 +903,8 @@ def main() -> int:
         fail("sort_partial(stable=False) breaks the digit-group contract")
     if not np.array_equal(b, checks.boundaries_oracle(s, 8, 8)):
         fail("sort_partial boundaries differ from boundaries_oracle")
-    log(f"routes: ragged n={n_ragged} exact; n={n_small} one block exact; "
+    log(f"routes: ragged n={n_ragged} exact; n={n_small} one block exact "
+        f"(single_block_sort launches {single_launches}); "
         f"int32 and float32 at {n_typed} exact; sort_partial(8, 8, stable=False) "
         f"at {n_part} meets the group and boundary contract")
 
@@ -809,8 +922,24 @@ def main() -> int:
     pairs = runs.view(torch.int32).view(-1, 2 * TILE)
     ms_merge_lib = timers.time_cuda(lambda: torch.sort(pairs, dim=1))
     one_block = keys[:TILE]
-    ms_single = timers.time_cuda(lambda: bs.sort_single_block(one_block))
-    ms_single_plain = timers.time_cuda(lambda: bs.block_sort_plain(one_block, TILE))
+    flipped = sortable_digits(one_block, 0, 32)  # the int32 view that torch.sort takes
+    one_out = torch.empty_like(one_block)
+
+    def counting_route() -> None:  # digit_sort_kernel by all 32 bits: four 8-bit passes
+        build.check(lib.grs_digit_sort_u32(
+            one_block.data_ptr(), one_out.data_ptr(), TILE, 0, 32,
+            torch.cuda.current_stream().cuda_stream), "digit_sort by 32 bits")
+
+    counting_route()
+    compare(one_out, sb.sort_single_block_plain(one_block), "one-block counting route")
+    ms_single = graph_ms(lambda: sb.sort_single_block(one_block))
+    ms_single_lib = graph_ms(lambda: torch.sort(flipped))
+    ms_single_count = graph_ms(counting_route)
+    ms_single_old = graph_ms(lambda: bs.block_sort(one_block, TILE))
+    ms_single_call = timers.time_cuda(lambda: sb.sort_single_block(one_block))
+    ms_single_lib_call = timers.time_cuda(lambda: torch.sort(flipped))
+    ms_single_count_call = timers.time_cuda(counting_route)
+    ms_single_plain = timers.time_cuda(lambda: sb.sort_single_block_plain(one_block))
     top = bs.sort_runs_plain(keys, N_MAIN // 2, alternate=True)
     ms_merge_top = timers.time_cuda(lambda: ms.merge_level(top, N_MAIN // 2))
     rate = lambda t: N_MAIN / (t * 1e-3)  # noqa: E731
@@ -824,11 +953,18 @@ def main() -> int:
         f"{ms_merge_plain:.3f} ms; torch.sort of the (n/2L, 2L) rows "
         f"{ms_merge_lib:.3f} ms; L={N_MAIN // 2} {ms_merge_top:.3f} ms "
         f"({2 * 4 * N_MAIN / (ms_merge * 1e-3) / 1e9:.4g} GB/s moved at L={TILE})")
-    log(f"time [{card}]: one-block sort_full of {TILE} keys {ms_single:.4f} ms; "
-        f"plain {ms_single_plain:.4f} ms")
+    log(f"time [{card}]: single_block_sort of {TILE} keys {ms_single:.4f} ms a launch "
+        f"(a CUDA graph of 20 calls), torch.sort of the int32 view {ms_single_lib:.4f} ms "
+        f"a call; design study: four 8-bit counting passes (digit_sort_kernel) "
+        f"{ms_single_count:.4f} ms, the shared-memory network as one block "
+        f"{ms_single_old:.4f} ms; single calls by CUDA events, host work included: "
+        f"{ms_single_call:.4f} ms, torch.sort {ms_single_lib_call:.4f} ms, counting "
+        f"{ms_single_count_call:.4f} ms, plain {ms_single_plain:.4f} ms")
     block_bound = bound(8 * N_MAIN, N_MAIN // 2 * network_stages(TILE))
+    single_bound = bound(8 * TILE, TILE // 2 * network_stages(TILE))
     merge_bound = bound(8 * N_MAIN, N_MAIN)
     del keys, keys_np, big, out, runs, pairs, top, rows, one_block, ints, floats, got, s, b
+    del flipped, one_out
     torch.cuda.empty_cache()
 
     # -- the stable partial-sort path ------------------------------------------
@@ -940,12 +1076,16 @@ def main() -> int:
     ms_bin = timers.time_cuda(lambda: bn.bin_runs(sk, sk, g_run, sflat, bn.TILE, 0, 4))
     ms_bin_plain = timers.time_cuda(
         lambda: bn.bin_runs_plain(sk, sk, g_run, sflat, bn.TILE, 0, 4))
+    # the same (digit, tile, rank) order: a stable sort of stage A's digits
+    sk_digits = sortable_digits(sk, 0, 4)
+    ms_bin_lib = timers.time_cuda(lambda: torch.sort(sk_digits, stable=True))
     bin_bound = bound(8 * N_PART + 16 * g_run.numel(), N_PART)
     log(f"time [{card}]: one 4-bit pass at {N_PART} keys: stage A (row "
         f"torch.sort, gather, searchsorted, metadata) {ms_stage_a:.3f} ms; binning "
         f"kernel {ms_bin:.3f} ms ({8 * N_PART / (ms_bin * 1e-3) / 1e9:.4g} GB/s "
-        f"moved; bound {bin_bound[0]:.3f} ms); plain {ms_bin_plain:.3f} ms")
-    del sk, g_run, sflat
+        f"moved; bound {bin_bound[0]:.3f} ms); plain {ms_bin_plain:.3f} ms; stable "
+        f"torch.sort of stage A's digits (no gather) {ms_bin_lib:.3f} ms")
+    del sk, g_run, sflat, sk_digits
     x_small = part[:ds.MAX_N_KV]
     d_small, d17 = sortable_digits(x_small, 0, 8), sortable_digits(x_small, 0, 17)
     ms_ds = graph_ms(lambda: ds.sort_by_digits_small(x_small, 0, 8))
@@ -980,7 +1120,8 @@ def main() -> int:
 
     del vals
     torch.cuda.empty_cache()
-    mesh = mesh_path(dev, rng, card, part, part_np, rank_info["group_sort_send_kernel"])
+    mesh = mesh_path(dev, rng, card, part, part_np, rank_info["segment_copy_kernel"],
+                     rank_info["group_sort_send_kernel"])
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -992,9 +1133,14 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel("block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:131",
                launches["block_sort"], err_block, ms_block, ms_block_plain,
-               block_bound, ms_block_lib,
-               also_replaces="gpu_radix_sort_tpu/ops/pallas_sort.py:180",
-               one_block_ms=ms_single, one_block_plain_ms=ms_single_plain),
+               block_bound, ms_block_lib),
+        kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
+               single_launches, err_single, ms_single, ms_single_plain, single_bound,
+               ms_single_lib, timed="CUDA graph of 20 calls", network="register_bitonic.cuh",
+               counting_route_ms=ms_single_count, shared_network_ms=ms_single_old,
+               single_call_ms=ms_single_call, single_call_library_ms=ms_single_lib_call,
+               counting_route_single_call_ms=ms_single_count_call,
+               **rank_info["single_block_sort_kernel<14>"]),
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
                merge_bound, ms_merge_lib),
@@ -1005,7 +1151,7 @@ def main() -> int:
                **rank_info["digit_sort_kernel"]),
         kernel("binning", "binning.cu", "gpu_radix_sort_tpu/ops/pallas_radix.py:205",
                sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
-               bin_bound, None, launches_by_width=part_launches,
+               bin_bound, ms_bin_lib, launches_by_width=part_launches,
                kv_launches=kv_launches, stage_a_ms=ms_stage_a),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
@@ -1120,9 +1266,13 @@ def all_cards_path(devs: list, card: str) -> dict:
                                                      serial=serial)[0]
             same_bytes(got, want, f"group_sort_send across {P} cards, serial={serial}, {name}")
         cases += 3
+    n_align = 3 * rx.COPY_CHUNK + 5
+    b6_align = check_segment_alignment(devs, rng, n_align)
     log(f"exchange kernels across {P} cards: {cases} rounds (segment_copy; group_sort_send "
         f"overlapped and serial) equal to their plain versions byte for byte "
-        f"(n_local={n_check // P}; uniform/duplicate/presorted/skewed/equal)")
+        f"(n_local={n_check // P}; uniform/duplicate/presorted/skewed/equal); "
+        f"segment_copy in {b6_align} launches at every source x receiver word offset "
+        f"past a 16-byte boundary (n_local={n_align})")
 
     # -- the mesh sort of 256Mi keys across the cards ------------------------
     keygen.reset_global_stream()

@@ -1,13 +1,15 @@
-// Bitonic sort of one tile of uint32 keys per CUDA block, in shared memory,
-// and the one-block stable digit sort.
+// The block sorts of uint32 keys: the bitonic sort of one tile of keys per
+// CUDA block in shared memory, the one-block sort with the keys in
+// registers, and the one-block stable digit sort.
 //
 // Replaces three Pallas kernels of the JAX package:
 //   * gpu_radix_sort_tpu/ops/pallas_merge.py:131 `_tile_sort_kernel` (B1): a
 //     grid over tiles, odd tiles sorted descending under `alternate`, so that
-//     the merge levels see [ascending; descending] pairs;
+//     the merge levels see [ascending; descending] pairs (`block_sort_kernel`,
+//     the network of bitonic.cuh);
 //   * gpu_radix_sort_tpu/ops/pallas_sort.py:180 `_sort_kernel` (B3): the whole
-//     array in one program, padded to a power of two with 0xFFFFFFFF.  Here
-//     that is a grid of one block with `alternate` off;
+//     array in one program, padded to a power of two with 0xFFFFFFFF
+//     (`single_block_sort_kernel` below, the network of register_bitonic.cuh);
 //   * gpu_radix_sort_tpu/ops/pallas_sort.py:185 `_sort_kv_kernel` (B4): the
 //     stable digit sort of n <= 2^14 keys in one block (`digit_sort_kernel`
 //     below), LSD counting passes of block_rank.cuh.
@@ -19,13 +21,21 @@
 // threads), 2^13 would add a merge level at 64M keys.  64 KB is above the
 // 48 KB static limit, so the launch raises the block's dynamic limit first.
 //
-// Bound on this card: the network does log2(T)(log2(T)+1)/2 compare-exchange
-// stages over the tile (105 at T = 2^14), each a shared-memory read and
-// write of every key and one __syncthreads; device memory is touched once
-// (4 bytes read and 4 written per key).  So it is bound by shared-memory
-// bandwidth and barrier latency, not by HBM.  Design: keep it simple and
-// right -- every stage in shared memory; register and warp-shuffle stages
-// for small strides are later work.
+// Bound on this card (B1): the network does log2(T)(log2(T)+1)/2
+// compare-exchange stages over the tile (105 at T = 2^14), each a
+// shared-memory read and write of every key and one __syncthreads; device
+// memory is touched once (4 bytes read and 4 written per key).  So it is
+// bound by shared-memory bandwidth and barrier latency, not by HBM.  Its
+// tile pass keeps every stage in shared memory (queue D2 moves it onto the
+// register network).
+//
+// B3 is one block on one SM of 132: launch latency and the network's own
+// shuffles and shared-memory traffic bound it, not its 8 bytes a key of
+// device memory.  So its keys stay in registers (2^kSingleRegLog consecutive
+// keys a thread), its shuffles and shared-memory stages are those of
+// register_bitonic.cuh, each thread loads and stores its keys as 16-byte
+// vectors, and the dynamic shared-memory limit is raised once per device,
+// not per call.
 //
 // Ragged tiles: slots past the last key are padded with 0xFFFFFFFF in the
 // sort domain (after the complement of a descending tile), so they sort last
@@ -37,6 +47,7 @@
 
 #include "bitonic.cuh"
 #include "block_rank.cuh"
+#include "register_bitonic.cuh"
 
 namespace {
 
@@ -44,6 +55,7 @@ using grs::bitonic_network;
 
 constexpr int kThreads = grs::kNetworkThreads;
 constexpr int kMaxTile = 1 << 14;
+constexpr int kMaxDevices = 64;  // devices whose attributes are remembered
 
 __global__ void __launch_bounds__(kThreads)
 block_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
@@ -102,6 +114,101 @@ digit_sort_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
 }
 
+// B3's geometry (tools/network_variants.py times other values).
+constexpr int kSingleRegLog = 4;  // log2 of the keys a thread holds
+constexpr int kSingleKeys = 1 << kSingleRegLog;
+constexpr int kSingleMinLog = kSingleRegLog + grs::kLaneLog;  // one warp
+constexpr int kSingleMaxLog = 14;
+static_assert(1 << kSingleMaxLog == kMaxTile, "one block sorts up to kMaxTile keys");
+
+// B3.  All n <= 2^LOG keys in one block of 2^(LOG-R) threads, slots [n,
+// 2^LOG) padded with 0xFFFFFFFF; thread t loads and stores slots
+// [2^R t, 2^R (t + 1)), as 16-byte vectors where the pointer is aligned and
+// the slots are all keys, else key by key.
+template <int LOG>
+__global__ void __launch_bounds__(1 << (LOG - kSingleRegLog))
+single_block_sort_kernel(const uint32_t* __restrict__ x,
+                         uint32_t* __restrict__ out, int n) {
+  extern __shared__ uint4 net_buf[];
+  const int first = threadIdx.x * kSingleKeys;
+  const bool whole = first + kSingleKeys <= n;
+  uint32_t keys[kSingleKeys];
+  if (whole && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const uint4* v = reinterpret_cast<const uint4*>(x + first);
+#pragma unroll
+    for (int q = 0; q < kSingleKeys / 4; ++q) {
+      const uint4 y = __ldg(v + q);
+      keys[4 * q] = y.x;
+      keys[4 * q + 1] = y.y;
+      keys[4 * q + 2] = y.z;
+      keys[4 * q + 3] = y.w;
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kSingleKeys; ++r) {
+      keys[r] = first + r < n ? x[first + r] : 0xFFFFFFFFu;
+    }
+  }
+  grs::register_bitonic_sort<LOG, kSingleRegLog>(keys, net_buf);
+  if (whole && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    uint4* v = reinterpret_cast<uint4*>(out + first);
+#pragma unroll
+    for (int q = 0; q < kSingleKeys / 4; ++q) {
+      v[q] = make_uint4(keys[4 * q], keys[4 * q + 1], keys[4 * q + 2], keys[4 * q + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kSingleKeys; ++r) {
+      if (first + r < n) out[first + r] = keys[r];
+    }
+  }
+}
+
+// Two buffers of 2^LOG words for the stages through shared memory (none in
+// a one-warp network).
+constexpr int single_block_smem(int log) {
+  return log > kSingleMinLog ? (2 << log) * (int)sizeof(uint32_t) : 0;
+}
+
+// Launches the network of 2^log slots (LOG <= log <= kSingleMaxLog).
+template <int LOG>
+cudaError_t launch_single_block(const uint32_t* x, uint32_t* out, int n, int log,
+                                cudaStream_t stream) {
+  if constexpr (LOG < kSingleMaxLog) {
+    if (log > LOG) return launch_single_block<LOG + 1>(x, out, n, log, stream);
+  }
+  single_block_sort_kernel<LOG><<<1, 1 << (LOG - kSingleRegLog),
+                                  single_block_smem(LOG), stream>>>(x, out, n);
+  return cudaGetLastError();
+}
+
+// Raises the dynamic shared-memory limit of the networks of 2^LOG slots
+// and up to the size they use.
+template <int LOG>
+cudaError_t set_single_block_smem() {
+  cudaError_t err = cudaFuncSetAttribute(single_block_sort_kernel<LOG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         single_block_smem(LOG));
+  if constexpr (LOG < kSingleMaxLog) {
+    if (err == cudaSuccess) err = set_single_block_smem<LOG + 1>();
+  }
+  return err;
+}
+
+// Raises the networks' shared-memory limits once per device (two threads
+// that race only repeat an idempotent call).
+cudaError_t single_block_attributes() {
+  static bool ready[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (ready[dev]) return cudaSuccess;
+  err = set_single_block_smem<kSingleMinLog>();
+  ready[dev] = err == cudaSuccess;
+  return err;
+}
+
 int digit_sort_smem(long long n, int width) {
   return (grs::rank_keys_per_thread(n) * grs::kRankThreads +
           grs::rank_scratch_words(width < grs::kMaxRankWidth ? width
@@ -128,6 +235,19 @@ extern "C" int grs_block_sort_u32(const uint32_t* x, uint32_t* out,
   block_sort_kernel<<<(unsigned)grid, kThreads, smem, stream>>>(
       x, out, n, tile, alternate);
   return (int)cudaGetLastError();
+}
+
+// B3.  Ascending sort of x[0, n) into out in one block, n <= 2^14; the
+// network spans max(2^(R+5), next power of two >= n) slots.  Launches on
+// `stream`; returns the first CUDA error (0 when none).
+extern "C" int grs_single_block_sort_u32(const uint32_t* x, uint32_t* out,
+                                         long long n, cudaStream_t stream) {
+  if (n <= 0 || n > kMaxTile) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = single_block_attributes();
+  if (err != cudaSuccess) return (int)err;
+  int log = kSingleMinLog;
+  while ((1LL << log) < n) ++log;
+  return (int)launch_single_block<kSingleMinLog>(x, out, (int)n, log, stream);
 }
 
 // Stable sort of x[0, n) by bits [offset, offset + width) into out, in one

@@ -29,17 +29,24 @@
 // (grs_enable_peer_access); on one card all buffers are local.
 //
 // Bounds on this card.  segment_copy reads and writes each key once, 8 bytes
-// a key: bound by device-memory bandwidth.  Each block copies kCopyChunk
-// keys: one thread searches the segment range of the chunk's ends, then
-// every key searches that (usually one or two segment) range, so loads and
-// stores are coalesced within a segment.  group_sort_send reads each key
-// once into registers and stores it once from shared memory, 8 bytes a key
-// of device memory, with two ballot passes, a scan and three barriers in
-// between (block_rank.cuh); its shared memory (~97 KB at 2^14 keys and 8
-// bits, plus 16 bytes a receiver for the schedule) lets two blocks share an
-// SM, so one block's loads and stores overlap the other's ranking.  The
-// destinations of all stores are disjoint (the counts-derived layout), so
-// there are no atomics in device memory.
+// a key: bound by device-memory bandwidth, so its design is about bytes in
+// flight and 16-byte accesses.  Each block takes kCopyChunk keys of the
+// source, finds the segments that meet them once (two binary searches by
+// two threads), then walks those segments: for each it resolves the
+// receiver's address once and stores its part as 16-byte vectors aligned on
+// the receiver, between a scalar head and tail of at most 3 keys.  A thread
+// loads kCopyUnroll aligned 16-byte vectors of the source before it stores
+// them; where the receiver's alignment lags the source's, a vector is put
+// together from two aligned loads (the second is the next thread's first,
+// from L1).  Staging the chunk in shared memory first (cp.async, one or two
+// buffers) measured slower: tools/copy_variants.py and PERF.md.
+// group_sort_send reads each key once into registers and stores it once
+// from shared memory, 8 bytes a key of device memory, with two ballot
+// passes, a scan and three barriers in between (block_rank.cuh); its shared
+// memory (~97 KB at 2^14 keys and 8 bits, plus 16 bytes a receiver for the
+// schedule) lets two blocks share an SM, so one block's loads and stores
+// overlap the other's ranking.  The destinations of all stores are disjoint
+// (the counts-derived layout), so there are no atomics in device memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,8 +58,11 @@ namespace {
 constexpr int kThreads = grs::kRankThreads;
 constexpr int kMaxTile = 1 << 14;  // keys a block ranks (16 a thread)
 constexpr int kMaxRanks = 256;     // receivers a launch addresses (2 KB of parameters)
-constexpr int kCopyThreads = 256;
-constexpr int kCopyChunk = 4096;   // keys a segment_copy block moves
+// segment_copy's geometry (tools/copy_variants.py times other values).
+constexpr int kCopyThreads = 512;
+constexpr int kCopyChunk = 1 << 14;  // source keys a block sends
+constexpr int kCopyUnroll = 4;       // vectors a thread loads before it stores them
+constexpr int kCopyStripes = 16;     // interleaved stripes of chunks, for several receivers
 
 struct RankTable {
   uint32_t* base[kMaxRanks];
@@ -72,33 +82,77 @@ __device__ __forceinline__ int last_at_or_below(const long long* starts, int lo,
   return lo;
 }
 
+// Words lag..lag+3 of the two consecutive vectors a, b (lag 1 to 3).
+__device__ __forceinline__ uint4 lagged(uint4 a, uint4 b, int lag) {
+  switch (lag) {
+    case 1: return make_uint4(a.y, a.z, a.w, b.x);
+    case 2: return make_uint4(a.z, a.w, b.x, b.y);
+    default: return make_uint4(a.w, b.x, b.y, b.z);
+  }
+}
+
 // segs is (4, n_seg) int64: src_start, count, dst_rank, dst_start.  Segments
 // are in source order and disjoint (src_start[s] + count[s] <=
-// src_start[s + 1]); keys in no segment are not sent.
+// src_start[s + 1]); keys in no segment are not sent.  `shift` is src's word
+// offset past a 16-byte boundary: key i is word i + shift of the aligned
+// source.  The grid is `stripes` x rows blocks; block b sends chunk
+// c = (b mod stripes) rows + b / stripes, the keys [c kCopyChunk,
+// (c + 1) kCopyChunk), if there are such keys.  Blocks run in about the
+// order of b, so with several stripes the blocks in flight spread over the
+// whole source: a sender stores to every receiver at once, not to one
+// after the other (a card's NVLink bandwidth is split among its peers).
+// The loads read whole aligned vectors, so they may touch up to 3 words
+// before a part's first key or past its last, never outside those keys'
+// vectors.
 __global__ void __launch_bounds__(kCopyThreads)
-segment_copy_kernel(const uint32_t* __restrict__ src, long long n_src,
-                    const long long* __restrict__ segs, int n_seg,
-                    const RankTable dst) {
-  const long long* seg_src = segs;
-  const long long* seg_count = segs + n_seg;
-  const long long* seg_rank = segs + 2 * (long long)n_seg;
-  const long long* seg_dst = segs + 3 * (long long)n_seg;
+segment_copy_kernel(const uint32_t* __restrict__ src, long long n_src, int shift,
+                    const long long* __restrict__ segs, int n_seg, int stripes,
+                    const __grid_constant__ RankTable dst) {
   __shared__ int range[2];
-  const long long first = (long long)blockIdx.x * kCopyChunk;
+  const long long rows = gridDim.x / stripes;
+  const long long first = ((blockIdx.x % stripes) * rows + blockIdx.x / stripes) * kCopyChunk;
+  if (first >= n_src) return;
   const long long last = min(first + kCopyChunk, n_src) - 1;
   if (threadIdx.x == 0) {
-    range[0] = last_at_or_below(seg_src, 0, n_seg - 1, first);
+    range[0] = last_at_or_below(segs, 0, n_seg - 1, first);
   } else if (threadIdx.x == 32) {
-    range[1] = last_at_or_below(seg_src, 0, n_seg - 1, last);
+    range[1] = last_at_or_below(segs, 0, n_seg - 1, last);
   }
   __syncthreads();
-  const int lo = range[0];
-  const int hi = range[1];
-  for (long long i = first + threadIdx.x; i <= last; i += kCopyThreads) {
-    const int s = last_at_or_below(seg_src, lo, hi, i);
-    const long long off = i - seg_src[s];
-    if (off >= 0 && off < seg_count[s]) {
-      dst.base[seg_rank[s]][seg_dst[s] + off] = src[i];
+  const uint4* aligned = reinterpret_cast<const uint4*>(src - shift);
+  for (int s = range[0]; s <= range[1]; ++s) {
+    const long long s0 = segs[s];
+    const long long a = max(s0, first);
+    const long long b = min(s0 + segs[n_seg + s], last + 1);
+    if (a >= b) continue;
+    uint32_t* d = dst.base[segs[2LL * n_seg + s]] + segs[3LL * n_seg + s] + (a - s0);
+    const int len = (int)(b - a);
+    const int head = min(len, (int)((4 - (reinterpret_cast<uintptr_t>(d) >> 2)) & 3));
+    const int nvec = (len - head) >> 2;
+    const int tail = (len - head) & 3;
+    if ((int)threadIdx.x < head) d[threadIdx.x] = src[a + threadIdx.x];
+    const long long w = a + head + shift;  // aligned source word of the first vector's key
+    const uint4* sv = aligned + (w >> 2);
+    const int lag = (int)(w & 3);
+    uint4* dv = reinterpret_cast<uint4*>(d + head);
+    for (int v0 = threadIdx.x; v0 < nvec; v0 += kCopyThreads * kCopyUnroll) {
+      uint4 x[kCopyUnroll], y[kCopyUnroll];
+#pragma unroll
+      for (int u = 0; u < kCopyUnroll; ++u) {
+        const int v = v0 + u * kCopyThreads;
+        if (v < nvec) {
+          x[u] = __ldg(sv + v);
+          if (lag) y[u] = __ldg(sv + v + 1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCopyUnroll; ++u) {
+        const int v = v0 + u * kCopyThreads;
+        if (v < nvec) dv[v] = lag ? lagged(x[u], y[u], lag) : x[u];
+      }
+    }
+    if ((int)threadIdx.x < tail) {
+      d[head + 4 * nvec + threadIdx.x] = src[a + head + 4LL * nvec + threadIdx.x];
     }
   }
 }
@@ -173,8 +227,9 @@ int fill_table(RankTable* table, const long long* dst_ptrs, int nranks) {
 // B6.  Copies each segment of src[0, n_src) into its receiver's buffer:
 // src[src_start + k] -> dst_ptrs[dst_rank][dst_start + k] for k < count.
 // segs is a device array (4, n_seg) int64 (see the kernel); dst_ptrs is a
-// HOST array of nranks device addresses (uint32_t*), nranks <= 256.
-// Launches on `stream`; returns cudaGetLastError().
+// HOST array of nranks device addresses (uint32_t*), nranks <= 256.  Any
+// 4-byte alignment of src and of the receivers works.  Launches on `stream`;
+// returns the first CUDA error (0 when none).
 extern "C" int grs_segment_copy_u32(const uint32_t* src, long long n_src,
                                     const long long* segs, int n_seg,
                                     const long long* dst_ptrs, int nranks,
@@ -184,9 +239,13 @@ extern "C" int grs_segment_copy_u32(const uint32_t* src, long long n_src,
   const int bad = fill_table(&table, dst_ptrs, nranks);
   if (bad) return bad;
   if (n_src == 0) return 0;
-  const long long grid = (n_src + kCopyChunk - 1) / kCopyChunk;
-  segment_copy_kernel<<<(unsigned)grid, kCopyThreads, 0, stream>>>(
-      src, n_src, segs, n_seg, table);
+  const int shift = (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  // one receiver: chunks in order (striping costs a lagged copy a few %)
+  const int stripes = nranks > 1 ? kCopyStripes : 1;
+  const long long rows = (n_src + (long long)kCopyChunk * stripes - 1) /
+                         ((long long)kCopyChunk * stripes);
+  segment_copy_kernel<<<(unsigned)(rows * stripes), kCopyThreads, 0, stream>>>(
+      src, n_src, shift, segs, n_seg, stripes, table);
   return (int)cudaGetLastError();
 }
 

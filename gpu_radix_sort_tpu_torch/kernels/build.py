@@ -37,6 +37,8 @@ _SIGNATURES = {
     # (x, out, n, tile, alternate, stream)
     "grs_block_sort_u32": (_P, _P, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_int, _P),
+    # (x, out, n, stream)
+    "grs_single_block_sort_u32": (_P, _P, ctypes.c_longlong, _P),
     # (x, out, n, L, stream)
     "grs_merge_level_u32": (_P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     # (x, out, n, offset, width, stream)

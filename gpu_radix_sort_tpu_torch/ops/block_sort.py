@@ -1,15 +1,12 @@
-"""Tile sort of uint32 keys: the wrapper of ``csrc/block_sort.cu``.
+"""Tile sort of uint32 keys: the wrapper of ``block_sort_kernel`` in
+``csrc/block_sort.cu``.
 
 Replaces ``gpu_radix_sort_tpu/ops/pallas_merge.py:131`` ``_tile_sort_kernel``
-(B1, with ``sort_tiles``) and ``gpu_radix_sort_tpu/ops/pallas_sort.py:180``
-``_sort_kernel`` (B3, with ``pallas_sort.sort_full``), one bitonic network
-per CUDA block in shared memory.
-
-* :func:`block_sort` sorts each consecutive ``tile`` keys; with
-  ``alternate`` odd tiles descend (the merge levels' input convention).  The
-  last tile may be short.
-* :func:`sort_single_block` is B3: all n <= TILE keys in one block, the
-  network sized to the next power of two and padded with 0xFFFFFFFF.
+(B1, with ``sort_tiles``), one bitonic network per CUDA block in shared
+memory.  :func:`block_sort` sorts each consecutive ``tile`` keys; with
+``alternate`` odd tiles descend (the merge levels' input convention).  The
+last tile may be short.  The one-block sort of n <= TILE keys (B3) is
+``ops/single_block.py``.
 
 Bound on this card: shared-memory traffic and one barrier per network stage
 (105 stages at TILE = 2^14); device memory sees one read and one write of
@@ -95,10 +92,3 @@ def block_sort(
     launches += 1
     return out
 
-
-def sort_single_block(keys: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of n <= TILE keys by one block (B3's route)."""
-    n = keys.numel()
-    if n > TILE:
-        raise ValueError(f"one block sorts at most {TILE} keys, got {n}")
-    return block_sort(keys, next_pow2(n))

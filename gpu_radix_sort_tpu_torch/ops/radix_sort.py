@@ -14,7 +14,7 @@ Port of ``gpu_radix_sort_tpu/ops/radix_sort.py``:
 
 Strategies (per call, or via :func:`set_default_strategy`):
   * ``"auto"``  — the hand-written kernels.  Full sorts: n <= TILE keys in
-    one block (``block_sort``), larger n through ``sort_full_large``.  Digit
+    one block (``single_block``), larger n through ``sort_full_large``.  Digit
     sorts: n <= MAX_N_KV with width + pos_bits < 32 in one block
     (``digit_sort``), anything else through binning passes.  On a CPU tensor
     the same routes run the kernels' plain versions.
@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from . import binning, block_sort, digit_sort, merge_sort
+from . import binning, block_sort, digit_sort, merge_sort, single_block
 from .bits import (
     KEY_DTYPE, as_tensor, decode_ordered, encode_ordered, rotr32,
     sortable_digits, validate_digit_range,
@@ -53,7 +53,7 @@ def get_default_strategy() -> str:
 def _resolve(
     strategy: str | None, n: int, kind: str = "full", width: int | None = None
 ) -> str:
-    """The route a sort of n keys takes: "block_sort" or "merge" for a full
+    """The route a sort of n keys takes: "single_block" or "merge" for a full
     sort, "digit_sort" or "binning" for a stable digit sort (kind "kv") by
     ``width`` bits, or "torch"."""
     name = strategy or _DEFAULT_STRATEGY
@@ -63,7 +63,7 @@ def _resolve(
         return "torch"
     if kind == "kv":
         return "digit_sort" if digit_sort.supported(n, width) else "binning"
-    return "block_sort" if n <= block_sort.TILE else "merge"
+    return "single_block" if n <= single_block.MAX_N else "merge"
 
 
 def _sort_full_torch(keys: torch.Tensor) -> torch.Tensor:
@@ -84,8 +84,8 @@ def sort_full(keys, *, strategy: str | None = None) -> torch.Tensor:
     route = _resolve(strategy, keys.numel())
     if route == "torch":
         return _sort_full_torch(keys)
-    if route == "block_sort":
-        return block_sort.sort_single_block(keys)
+    if route == "single_block":
+        return single_block.sort_single_block(keys)
     return merge_sort.sort_full_large(keys)
 
 

@@ -16,7 +16,11 @@ by ``tags == D``.  Here:
     ``csrc/exchange.cu``, copies every segment into its receiver's buffer,
     one launch for each sender and round.  Rank c's buffer holds exactly its
     n_local keys, each source's slice in source order, so there are no slack
-    slots and ``tags`` are the plain digits;
+    slots and ``tags`` are the plain digits.  Each block walks the segments
+    that meet its 2^14 source keys and stores each one's part as 16-byte
+    vectors aligned on the receiver, built from aligned 16-byte loads of the
+    source, between a head and a tail of at most 3 keys
+    (:func:`segment_copy_emulated` repeats that walk for the CPU tests);
   * the barrier and the drains become stream order (:func:`begin_sends`,
     :func:`end_sends`): before any sender launches, its stream waits on an
     event recorded on each receiver's stream after the receive buffers were
@@ -44,6 +48,7 @@ from .exchange import _run_starts_global, _slice_counts, digits_i32
 from .mesh import all_gather
 
 MAX_RANKS = 256  # receivers one launch addresses (kMaxRanks in csrc/exchange.cu)
+COPY_CHUNK = 1 << 14  # source keys a segment_copy block sends (kCopyChunk)
 
 launches = 0  # kernel launches, for showing that a run went through the kernel
 
@@ -99,6 +104,58 @@ def segment_copy_plain(src: torch.Tensor, segs: torch.Tensor, recv: list) -> Non
         if count:
             out = recv[rank].view(torch.int32)
             out[d0:d0 + count] = src.view(torch.int32)[s0:s0 + count].to(out.device)
+
+
+def segment_copy_emulated(src: torch.Tensor, segs: torch.Tensor, recv: list, *,
+                          src_shift: int = 0, dst_shifts: list | None = None,
+                          chunk: int = COPY_CHUNK) -> dict:
+    """``segment_copy_kernel``'s walk on CPU tensors, writing into ``recv``.
+
+    Key i of ``src`` is word i + ``src_shift`` of a 16-byte aligned array,
+    key k of ``recv[c]`` word k + ``dst_shifts[c]`` of another (the shifts are
+    0 to 3, the addresses' word offsets past a 16-byte boundary).  Each block
+    takes ``chunk`` source keys, finds the segments that meet them by two
+    searches, and stores each segment's part there as a head of keys up to
+    the receiver's next 16-byte boundary, then 4-key vectors aligned there,
+    each from one aligned source vector or, where the receiver lags, from
+    two, then a tail.  Returns how many of each it stored, and the parts cut
+    at a block's edge."""
+    n = src.numel()
+    dst_shifts = dst_shifts or [0] * len(recv)
+    seg_src, seg_count, seg_rank, seg_dst = (row.tolist() for row in segs)
+    starts = segs[0].contiguous()
+    # the aligned source: whole 16-byte vectors around the keys
+    n_words = -(-(n + src_shift) // 4) * 4
+    words = torch.zeros(n_words + 4, dtype=torch.int32)
+    words[src_shift:src_shift + n] = src.view(torch.int32)
+    stats = {"head": 0, "vectors": 0, "lagged": 0, "tail": 0, "cut": 0}
+    for first in range(0, n, chunk):
+        last = min(first + chunk, n) - 1
+        lo, hi = (max(int(torch.searchsorted(starts, torch.tensor(v), right=True)) - 1, 0)
+                  for v in (first, last))
+        for s in range(lo, hi + 1):
+            a = max(seg_src[s], first)
+            b = min(seg_src[s] + seg_count[s], last + 1)
+            if a >= b:
+                continue
+            stats["cut"] += (b - a) < seg_count[s]
+            c, d = seg_rank[s], seg_dst[s] + (a - seg_src[s])
+            out = recv[c].view(torch.int32)
+            head = min(b - a, (-(dst_shifts[c] + d)) % 4)
+            nvec, tail = (b - a - head) // 4, (b - a - head) % 4
+            out[d:d + head] = words[a + src_shift:a + src_shift + head]
+            v0, w = d + head, a + head + src_shift  # the first vector's receiver and source words
+            assert nvec == 0 or (dst_shifts[c] + v0) % 4 == 0, "vector store off its boundary"
+            lag, base = w % 4, w - w % 4
+            rows = words[base:base + 4 * nvec + 4].view(-1, 4)  # aligned source vectors
+            vec = rows[:nvec] if lag == 0 else torch.cat([rows[:-1], rows[1:]], 1)[:, lag:lag + 4]
+            out[v0:v0 + 4 * nvec] = vec.reshape(-1)
+            out[v0 + 4 * nvec:v0 + 4 * nvec + tail] = words[w + 4 * nvec:w + 4 * nvec + tail]
+            stats["head"] += head
+            stats["vectors"] += nvec
+            stats["lagged"] += nvec if lag else 0
+            stats["tail"] += tail
+    return stats
 
 
 def segment_copy(src: torch.Tensor, segs: torch.Tensor, recv: list) -> None:

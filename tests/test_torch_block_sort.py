@@ -1,8 +1,9 @@
-"""PyTorch port's tile sort (block_sort, the port of B1 and B3) vs the JAX
-package's Pallas kernels in interpret mode, at the small geometry
-tests/test_pallas_merge.py uses.  On a CPU tensor the port runs the
-kernel's plain version; csrc/block_sort.cu itself is checked against that
-plain version on the card by chip_smoke.py.  Outputs must be equal bytes."""
+"""PyTorch port's tile sort (block_sort, the port of B1) and one-block sort
+(single_block, the port of B3) vs the JAX package's Pallas kernels in
+interpret mode, at the small geometry tests/test_pallas_merge.py uses.  On a
+CPU tensor the port runs the kernels' plain versions; csrc/block_sort.cu
+itself is checked against them on the card by chip_smoke.py.  Outputs must
+be equal bytes."""
 
 import re
 import shutil
@@ -18,6 +19,7 @@ from gpu_radix_sort_tpu.utils.keygen import Pcg32
 from gpu_radix_sort_tpu_torch.kernels import build
 from gpu_radix_sort_tpu_torch.ops import block_sort as bs
 from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+from gpu_radix_sort_tpu_torch.ops import single_block as sb
 
 TILE = 2048  # the JAX tests' small geometry
 
@@ -47,7 +49,7 @@ def test_sort_tiles_matches_pallas(alternate):
 def test_single_block_matches_pallas_sort_full(maker):
     keys = maker()
     want = np.asarray(pallas_sort.sort_full(jnp.asarray(keys)))
-    got = bs.sort_single_block(torch.from_numpy(keys))
+    got = sb.sort_single_block(torch.from_numpy(keys))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -80,14 +82,15 @@ def test_block_sort_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="neither on the CPU nor on CUDA"):
         bs.block_sort(torch.empty(64, dtype=torch.uint32, device="meta"))
     with pytest.raises(ValueError, match="one block sorts at most"):
-        bs.sort_single_block(torch.zeros(bs.TILE + 1, dtype=torch.uint32))
+        sb.sort_single_block(torch.zeros(bs.TILE + 1, dtype=torch.uint32))
 
 
 def test_cpu_tensors_launch_nothing():
-    before = (bs.launches, ms.launches)
+    before = (bs.launches, ms.launches, sb.launches)
     x = torch.from_numpy(Pcg32().fill(3 * TILE))
     ms.sort_full_large(x, tile=TILE)
-    assert (bs.launches, ms.launches) == before
+    sb.sort_single_block(x[:TILE])
+    assert (bs.launches, ms.launches, sb.launches) == before
 
 
 def test_c_entry_points_match_the_ctypes_signatures():
@@ -130,7 +133,7 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert build.build() == lib  # built already: nothing runs
 
 
-@pytest.mark.parametrize("edited", ["bitonic.cuh", "block_rank.cuh", "exchange.cu"])
+@pytest.mark.parametrize("edited", ["bitonic.cuh", "block_rank.cuh", "register_bitonic.cuh", "exchange.cu"])
 def test_library_name_hashes_sources_and_shared_headers(tmp_path, monkeypatch, edited):
     """An edit to a shared header builds anew, as an edit to a source does."""
     csrc = tmp_path / "csrc"

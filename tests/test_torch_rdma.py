@@ -22,6 +22,7 @@ from gpu_radix_sort_tpu.parallel import exchange as jex
 from gpu_radix_sort_tpu.parallel import key_mesh as jax_key_mesh
 from gpu_radix_sort_tpu.utils.keygen import Pcg32
 from gpu_radix_sort_tpu_torch.ops import binning as bn
+from gpu_radix_sort_tpu_torch.ops.boundaries import digit_counts_sorted
 from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
 from gpu_radix_sort_tpu_torch.parallel import mesh as pm
 from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
@@ -126,7 +127,7 @@ def _numpy_segment_copy(src, segs, recv):
             recv[rank][d0 + k] = src[s0 + k]
 
 
-@pytest.mark.parametrize("wrapper", [rx.segment_copy, rx.segment_copy_plain])
+@pytest.mark.parametrize("wrapper", [rx.segment_copy, rx.segment_copy_plain, rx.segment_copy_emulated])
 def test_segment_copy_matches_a_numpy_loop(wrapper):
     src = Pcg32(state=4).fill(100)
     segs = np.array([
@@ -143,6 +144,52 @@ def test_segment_copy_matches_a_numpy_loop(wrapper):
     assert rx.launches == before  # CPU tensors launch nothing
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("dst_shift", range(4))
+@pytest.mark.parametrize("src_shift", range(4))
+def test_segment_walk_matches_plain_at_every_alignment(src_shift, dst_shift):
+    """segment_copy_kernel's walk (segment_copy_emulated) at every word
+    offset of the source and of the receivers past a 16-byte boundary:
+    heads, aligned and lagged vectors and tails, empty segments, and blocks
+    of 32 keys that cut segments, against the plain version."""
+    src = torch.from_numpy(Pcg32(state=4).fill(300))
+    segs = torch.tensor([
+        [0, 3, 3, 9, 40, 41, 110, 200, 300],   # src_start (ascending, disjoint)
+        [3, 0, 5, 31, 1, 66, 90, 97, 0],       # count, with empty segments
+        [2, 0, 1, 0, 2, 1, 0, 2, 1],           # dst_rank
+        [1, 0, 6, 0, 4, 11, 31, 5, 77],        # dst_start
+    ], dtype=torch.int64)
+    sizes = (121, 80, 102)
+    want = [torch.zeros(n, dtype=torch.uint32) for n in sizes]
+    rx.segment_copy_plain(src, segs, want)
+    got = [torch.zeros(n, dtype=torch.uint32) for n in sizes]
+    shifts = [(dst_shift + c) % 4 for c in range(3)]
+    stats = rx.segment_copy_emulated(src, segs, got, src_shift=src_shift, dst_shifts=shifts, chunk=32)
+    for c, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f"receiver {c}")
+    assert stats["vectors"] > 0 and stats["head"] > 0 and stats["tail"] > 0 and stats["cut"] > 0
+    assert stats["lagged"] <= stats["vectors"]  # lagged where the staged words are off by 1-3
+    assert stats["head"] + 4 * stats["vectors"] + stats["tail"] == int(segs[1].sum())
+
+
+@pytest.mark.parametrize("P", [1, 4])
+def test_segment_walk_matches_plain_on_real_schedules(P):
+    """The schedules a round builds from real digit counts, one launch a
+    sender, with the kernel's own chunk and with one that cuts segments."""
+    n = 1 << 13
+    shards = [sort_by_digits(s, 8, 8) for s in port_shards(keys_of("skewed", n, seed=P), P)]
+    M = rx.send_matrix(torch.stack([digit_counts_sorted(s, 8, 8) for s in shards]), n // P)
+    for i, s in enumerate(shards):
+        segs = rx.segments(M, i)
+        want = [torch.zeros(n // P, dtype=torch.uint32) for _ in range(P)]
+        rx.segment_copy_plain(s, segs, want)
+        for chunk in (rx.COPY_CHUNK, 256):
+            got = [torch.zeros(n // P, dtype=torch.uint32) for _ in range(P)]
+            rx.segment_copy_emulated(s, segs, got, src_shift=i % 4,
+                                     dst_shifts=[(i + c + 1) % 4 for c in range(P)], chunk=chunk)
+            for c in range(P):
+                np.testing.assert_array_equal(got[c].numpy(), want[c].numpy(), err_msg=f"{i} -> {c}")
 
 
 def test_segment_copy_rejects_what_the_kernel_does_not_take():

@@ -196,8 +196,8 @@ def test_host_input_never_sorts_on_the_cpu(monkeypatch):
 
 
 def test_routes_and_strategies():
-    assert radix_sort._resolve(None, 1) == "block_sort"
-    assert radix_sort._resolve("auto", bs.TILE) == "block_sort"
+    assert radix_sort._resolve(None, 1) == "single_block"
+    assert radix_sort._resolve("auto", bs.TILE) == "single_block"
     assert radix_sort._resolve("auto", bs.TILE + 1) == "merge"
     assert radix_sort._resolve("torch", 1 << 26) == "torch"
     with pytest.raises(ValueError, match="strategy must be one of"):
