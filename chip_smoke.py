@@ -5,14 +5,17 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels of gpu_radix_sort_tpu_torch/csrc with nvcc, and prints
-   what ptxas says of the counting-sort kernels (digit_sort,
-   group_sort_send), the one-block register network (single_block_sort at
-   2^14 keys) and segment_copy: registers, spills; and how many blocks of
-   the counting sorts fit an SM;
-3. holds block_sort, single_block_sort (n from 1 to 2^14, aligned and
-   shifted input), merge_level, digit_sort and binning against their plain
-   PyTorch versions, byte for byte, at small shapes and at the shapes of the
-   main paths;
+   what ptxas says of the tile pass (block_sort), the merge level, the
+   counting-sort kernels (digit_sort, group_sort_send), the one-block
+   register network (single_block_sort at 2^14 keys) and segment_copy:
+   registers, spills; and how many blocks of the tile pass, the merge level
+   and the counting sorts fit an SM;
+3. holds block_sort (tiles 1 to 2^14, a ragged last tile of each parity,
+   also at 64M), single_block_sort (n from 1 to 2^14, aligned and shifted
+   input), merge_level (L from 1 to 2^25, input at every word offset past a
+   16-byte boundary), digit_sort and binning against their plain PyTorch
+   versions, byte for byte, at small shapes and at the shapes of the main
+   paths;
 4. drives the first main path -- sort_full of 64M PCG32 keys -- with the
    launch counts set to 0 just before and read just after, exact against
    np.sort; then a ragged n, the one-block route (single_block_sort, its
@@ -25,9 +28,9 @@
 6. times each path, its torch.sort yardstick, each kernel and its plain
    version by the CUDA-event median (the one-block sorts and their
    torch.sort also as a CUDA graph of 20 calls, device time alone, beside
-   the one-block counting route and the old shared-memory network), B5's
-   library call (a stable torch.sort of the digits), and profiles the
-   partial sorts by kernel (torch.profiler);
+   the one-block counting route), B5's library call (a stable torch.sort of
+   the digits), profiles sort_full and the partial sorts by kernel
+   (torch.profiler);
 7. holds segment_copy (B6) and group_sort_send (B7) against their plain
    versions byte for byte, on 1 to 8 ranks of one card, schedules from
    uniform, duplicate, presorted, skewed and all-equal keys, 64Mi keys a
@@ -38,9 +41,10 @@
    set to 0 just before and read just after, exact against np.sort; then on
    four ranks of cuda:0 through "rdma" and "rdma_overlap" the same way, and
    width 16, the collective exchanges, all-equal and typed keys;
-9. times the mesh sorts, one B6 launch (destination aligned and shifted by
-   one key, beside copy_ of the same bytes) and one B7 round, and profiles
-   the one-rank rdma sort and the four-rank rdma_overlap sort by kernel.
+9. times the mesh sorts, one tile pass and one merge level of the 256Mi
+   keys, one B6 launch (destination aligned and shifted by one key, beside
+   copy_ of the same bytes) and one B7 round, and profiles the one-rank rdma
+   sort and the four-rank rdma_overlap sort by kernel.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -112,6 +116,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 # Kernels whose ptxas report is printed: name -> (text of its entry's
 # mangled name, source); the register network at 2^14 keys.
 PTXAS_KERNELS = {
+    "block_sort_kernel": ("17block_sort_kernel", "block_sort.cu"),
+    "merge_level_kernel": ("18merge_level_kernel", "merge_path.cu"),
     "digit_sort_kernel": ("digit_sort_kernel", "block_sort.cu"),
     "group_sort_send_kernel": ("group_sort_send_kernel", "exchange.cu"),
     "single_block_sort_kernel<14>": ("single_block_sort_kernelILi14E", "block_sort.cu"),
@@ -154,8 +160,8 @@ def ptxas_report(procs) -> dict:
 
 
 def blocks_per_sm(lib, fn: str, *args) -> tuple[int, int]:
-    """(blocks a SM, dynamic shared memory bytes) of a counting-sort kernel
-    at the launch ``args`` describe, from the CUDA occupancy calculator."""
+    """(blocks a SM, dynamic shared memory bytes) of a kernel at the launch
+    ``args`` describe, from the CUDA occupancy calculator."""
     import ctypes
 
     from gpu_radix_sort_tpu_torch.kernels import build
@@ -588,6 +594,15 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
         f"torch.sort (strategy='torch') {res['torch_sort_256Mi_ms']:.3f} ms")
     log(f"time [{card}]: {MESH_RANKS} ranks on one card: rdma {res['mesh4_rdma_ms']:.3f} "
         f"ms; rdma_overlap {res['mesh4_rdma_overlap_ms']:.3f} ms")
+    res["launches_one_rank"] = main_launches
+    res["tile_pass_256Mi_ms"] = timers.time_cuda(
+        lambda: bs.block_sort(part, bs.TILE, alternate=True))
+    runs = bs.block_sort(part, bs.TILE, alternate=True)
+    res["merge_level_256Mi_ms"] = timers.time_cuda(lambda: ms.merge_level(runs, bs.TILE))
+    del runs
+    log(f"time [{card}]: at {N_MESH} keys, one tile pass (tile {bs.TILE}) "
+        f"{res['tile_pass_256Mi_ms']:.3f} ms and one merge level (L={bs.TILE}) "
+        f"{res['merge_level_256Mi_ms']:.3f} ms; bound {bound(8 * N_MESH, 0)[0]:.3f} ms each")
 
     # B6: one launch over the whole shard (one rank: one segment of 256Mi),
     # into a receiver aligned to 16 bytes and into one shifted by a key,
@@ -696,6 +711,11 @@ def main() -> int:
     rank_info["digit_sort_kernel"]["blocks_per_sm"] = {
         f"n={ds.MAX_N_KV} w{w}": blocks_per_sm(lib, "grs_digit_sort_blocks_per_sm", ds.MAX_N_KV, w)
         for w in (8, 17)}
+    rank_info["block_sort_kernel"]["blocks_per_sm"] = {
+        f"tile={tile}": blocks_per_sm(lib, "grs_block_sort_blocks_per_sm", tile)
+        for tile in (bs.TILE, 512)}
+    rank_info["merge_level_kernel"]["blocks_per_sm"] = {
+        f"{ms.B_OUT} keys a block": blocks_per_sm(lib, "grs_merge_level_blocks_per_sm")}
     rank_info["group_sort_send_kernel"]["blocks_per_sm"] = {
         f"tile={1 << 14} w8 {what}": blocks_per_sm(
             lib, "grs_group_sort_send_blocks_per_sm", 1 << 14, 8, nranks)
@@ -733,11 +753,15 @@ def main() -> int:
 
     # -- block_sort against its plain version ------------------------------
     small_n = (1, 1000, 1024, TILE - 1, TILE)
+    # a ragged last tile after an even and after an odd number of whole
+    # tiles, each of every tile size below
+    ragged_n = tuple(k * TILE + TILE // 3 for k in (4, 5))
+    block_tiles = (1, 2, 128, 512, TILE)
     err_block, cases = 0, 0
-    for n in small_n:
-        for tile in sorted({bs.next_pow2(n), 128}):
+    for n in small_n + ragged_n:
+        for tile in sorted({bs.next_pow2(n) if n <= TILE else TILE, *block_tiles[:-1]}):
             for alternate in (False, True):
-                for name, a in inputs(n):
+                for name, a in inputs(n, duplicate=True):
                     x = on_card(a)
                     err_block = max(err_block, compare(
                         bs.block_sort(x, tile, alternate=alternate),
@@ -746,13 +770,18 @@ def main() -> int:
                     ))
                     cases += 1
     big = on_card(rng.integers(0, 1 << 32, N_MAIN, dtype=np.uint32))
-    err_block = max(err_block, compare(
-        bs.block_sort(big, TILE, alternate=True),
-        bs.block_sort_plain(big, TILE, alternate=True),
-        f"block_sort n={N_MAIN} tile={TILE} alternate=True",
-    ))
-    log(f"block_sort: {cases + 1} cases equal to the plain version byte for byte "
-        f"(n in {small_n} and {N_MAIN}; tiles; alternate on/off; random/equal/all-max)")
+    big_ns = (N_MAIN, (N_MAIN // TILE - 2) * TILE + 777, (N_MAIN // TILE - 1) * TILE + 777)
+    for n in big_ns:
+        err_block = max(err_block, compare(
+            bs.block_sort(big[:n], TILE, alternate=True),
+            bs.block_sort_plain(big[:n], TILE, alternate=True),
+            f"block_sort n={n} tile={TILE} alternate=True",
+        ))
+        cases += 1
+    log(f"block_sort: {cases} cases equal to the plain version byte for byte "
+        f"(n in {small_n + ragged_n} at tiles {block_tiles[:-1]} and the next power "
+        f"of two; n in {big_ns} at {TILE}; alternate on/off; random/equal/all-max/"
+        f"duplicate)")
 
     # -- single_block_sort against its plain version ----------------------------
     err_single, cases = 0, 0
@@ -774,16 +803,24 @@ def main() -> int:
 
     # -- merge_level against its plain version -----------------------------
     err_merge, cases = 0, 0
-    merge_ls = (128, 1000, ms.B_OUT)
-    for n in small_n:
+    merge_ls = (1, 3, 128, 1000, 4099, ms.B_OUT)
+
+    def shifted(runs: torch.Tensor, shift: int) -> torch.Tensor:
+        """runs starting ``shift`` keys past a 16-byte boundary."""
+        x = torch.empty(runs.numel() + 4, dtype=runs.dtype, device=dev)[shift:]
+        return x[:runs.numel()].copy_(runs)
+
+    for n in small_n + ragged_n[:1]:
         for L in merge_ls:
-            for name, a in inputs(n):
+            for name, a in inputs(n, duplicate=True):
                 runs = bs.sort_runs_plain(on_card(a), L, alternate=True)
-                err_merge = max(err_merge, compare(
-                    ms.merge_level(runs, L), ms.merge_level_plain(runs, L),
-                    f"merge_level n={n} L={L} {name}",
-                ))
-                cases += 1
+                want = ms.merge_level_plain(runs, L)
+                for shift in (0, 1, 2, 3) if name == "random" else (0,):
+                    err_merge = max(err_merge, compare(
+                        ms.merge_level(shifted(runs, shift), L), want,
+                        f"merge_level n={n} L={L} {name} input shift {shift}",
+                    ))
+                    cases += 1
     for L in (TILE, 1 << 20, N_MAIN // 2):
         runs = bs.sort_runs_plain(big, L, alternate=True)
         err_merge = max(err_merge, compare(
@@ -793,8 +830,9 @@ def main() -> int:
         cases += 1
     del runs
     log(f"merge_level: {cases} cases equal to the plain version byte for byte "
-        f"(L in {merge_ls} at n in {small_n}; L in {(TILE, 1 << 20, N_MAIN // 2)} "
-        f"at n={N_MAIN})")
+        f"(L in {merge_ls} at n in {small_n + ragged_n[:1]}, random/equal/all-max/"
+        f"duplicate, random input also 1-3 keys past a 16-byte boundary; L in "
+        f"{(TILE, 1 << 20, N_MAIN // 2)} at n={N_MAIN})")
 
     # -- digit_sort against its plain version --------------------------------
     err_digit, cases = 0, 0
@@ -935,7 +973,6 @@ def main() -> int:
     ms_single = graph_ms(lambda: sb.sort_single_block(one_block))
     ms_single_lib = graph_ms(lambda: torch.sort(flipped))
     ms_single_count = graph_ms(counting_route)
-    ms_single_old = graph_ms(lambda: bs.block_sort(one_block, TILE))
     ms_single_call = timers.time_cuda(lambda: sb.sort_single_block(one_block))
     ms_single_lib_call = timers.time_cuda(lambda: torch.sort(flipped))
     ms_single_count_call = timers.time_cuda(counting_route)
@@ -956,13 +993,22 @@ def main() -> int:
     log(f"time [{card}]: single_block_sort of {TILE} keys {ms_single:.4f} ms a launch "
         f"(a CUDA graph of 20 calls), torch.sort of the int32 view {ms_single_lib:.4f} ms "
         f"a call; design study: four 8-bit counting passes (digit_sort_kernel) "
-        f"{ms_single_count:.4f} ms, the shared-memory network as one block "
-        f"{ms_single_old:.4f} ms; single calls by CUDA events, host work included: "
+        f"{ms_single_count:.4f} ms; single calls by CUDA events, host work included: "
         f"{ms_single_call:.4f} ms, torch.sort {ms_single_lib_call:.4f} ms, counting "
         f"{ms_single_count_call:.4f} ms, plain {ms_single_plain:.4f} ms")
     block_bound = bound(8 * N_MAIN, N_MAIN // 2 * network_stages(TILE))
     single_bound = bound(8 * TILE, TILE // 2 * network_stages(TILE))
     merge_bound = bound(8 * N_MAIN, N_MAIN)
+    prof = device_profile(lambda: rs.sort_full(keys))
+    if prof is None:
+        log(f"profile [{card}]: sort_full: the profiler saw no device work (not measured)")
+    else:
+        by_name, idle = prof
+        total = sum(by_name.values())
+        log(f"profile [{card}]: sort_full of {N_MAIN} keys: device {total:.3f} ms a call "
+            f"over 3 calls, idle share {idle:.4f}; top:")
+        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
     del keys, keys_np, big, out, runs, pairs, top, rows, one_block, ints, floats, got, s, b
     del flipped, one_out
     torch.cuda.empty_cache()
@@ -1133,17 +1179,23 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel("block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:131",
                launches["block_sort"], err_block, ms_block, ms_block_plain,
-               block_bound, ms_block_lib),
+               block_bound, ms_block_lib, network="register_bitonic.cuh, windowed",
+               pass_256Mi_ms=mesh["tile_pass_256Mi_ms"],
+               launches_mesh_one_rank=mesh["launches_one_rank"]["block_sort"],
+               **rank_info["block_sort_kernel"]),
         kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
                single_launches, err_single, ms_single, ms_single_plain, single_bound,
                ms_single_lib, timed="CUDA graph of 20 calls", network="register_bitonic.cuh",
-               counting_route_ms=ms_single_count, shared_network_ms=ms_single_old,
+               counting_route_ms=ms_single_count,
                single_call_ms=ms_single_call, single_call_library_ms=ms_single_lib_call,
                counting_route_single_call_ms=ms_single_count_call,
                **rank_info["single_block_sort_kernel<14>"]),
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
-               merge_bound, ms_merge_lib),
+               merge_bound, ms_merge_lib, top_level_ms=ms_merge_top,
+               level_256Mi_ms=mesh["merge_level_256Mi_ms"],
+               launches_mesh_one_rank=mesh["launches_one_rank"]["merge_level"],
+               **rank_info["merge_level_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
                timed="CUDA graph of 20 calls", w17_ms=ms_ds17, w17_library_ms=ms_ds17_lib,

@@ -56,6 +56,10 @@ _SIGNATURES = {
                                 _P, _P, _P),
     # (device, peer)
     "grs_enable_peer_access": (ctypes.c_int, ctypes.c_int),
+    # (tile, blocks, smem_bytes)
+    "grs_block_sort_blocks_per_sm": (ctypes.c_int, _P, _P),
+    # (blocks, smem_bytes)
+    "grs_merge_level_blocks_per_sm": (_P, _P),
     # (n, width, blocks, smem_bytes)
     "grs_digit_sort_blocks_per_sm": (ctypes.c_longlong, ctypes.c_int, _P, _P),
     # (tile, width, nranks, blocks, smem_bytes)

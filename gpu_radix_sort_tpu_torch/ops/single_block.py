@@ -24,13 +24,12 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
-from .bits import from_int64, to_int64
-from .block_sort import TILE, check_keys, next_pow2, sort_runs_plain
+from .block_sort import (
+    LANE_LOG, TILE, check_keys, next_pow2, sort_runs_plain, tile_network_emulated,
+)
 
 MAX_N = TILE  # keys one block sorts (kMaxTile in csrc/block_sort.cu)
 REG_LOG = 4  # slot bits a thread holds in registers (kSingleRegLog): 16 keys
-LANE_LOG = 5  # slot bits of the lanes of a warp
-_PAD = 0xFFFFFFFF
 
 launches = 0  # kernel launches, for showing that a run went through the kernel
 
@@ -41,60 +40,14 @@ def network_log(n: int, reg_log: int = REG_LOG) -> int:
     return max(reg_log + LANE_LOG, next_pow2(n).bit_length() - 1)
 
 
-def stage_kind(j: int, reg_log: int = REG_LOG) -> str:
-    """Where a compare-exchange of stride 2^j runs: "thread" (two registers
-    of a thread), "lane" (a shuffle across a warp) or "shared" (a barrier
-    and shared memory, between warps)."""
-    return "thread" if j < reg_log else "lane" if j < reg_log + LANE_LOG else "shared"
-
-
-def network_schedule(log: int, reg_log: int = REG_LOG) -> list[tuple[int, int, str]]:
-    """The network's stages over 2^log slots in order: (phase p, stride
-    bit j, kind); phase p merges runs of 2^p slots."""
-    return [(p, j, stage_kind(j, reg_log))
-            for p in range(1, log + 1) for j in range(p - 1, -1, -1)]
-
-
 def network_emulated(keys: torch.Tensor, reg_log: int = REG_LOG) -> torch.Tensor:
     """``single_block_sort_kernel``'s arithmetic on CPU tensors, with
-    2^reg_log keys a thread: the n keys padded with 0xFFFFFFFF to 2^LOG
-    slots, slot 2^reg_log t + r in register r of thread t; each stage
-    exchanges with the register, lane or thread that
-    :func:`network_schedule` names and keeps the minimum at the lower slot,
-    with the keys of descending runs held complemented.  Returns the first n
-    slots."""
-    n = keys.numel()
-    log = network_log(n, reg_log)
-    threads, regs = 1 << (log - reg_log), 1 << reg_log
-    x = torch.full((1 << log,), _PAD, dtype=torch.int64)
-    x[:n] = to_int64(keys)
-    x = x.view(threads, regs)  # [thread, register]
-    slot = torch.arange(1 << log).view(threads, regs)
-    t = torch.arange(threads)[:, None]
-
-    def region(p: int) -> torch.Tensor:  # all ones where phase p runs descending
-        return ((slot >> p) & 1) * 0xFFFFFFFF
-
-    schedule = network_schedule(log, reg_log)
-    for p in range(1, log + 1):
-        x = x ^ region(p - 1) ^ region(p) if p > 1 else x ^ region(p)
-        for _, j, kind in schedule[p * (p - 1) // 2:p * (p + 1) // 2]:
-            if kind == "thread":
-                lo = [r for r in range(regs) if not r >> j & 1]
-                hi = [r | 1 << j for r in lo]
-                a, b = x[:, lo], x[:, hi]
-                x[:, lo], x[:, hi] = torch.minimum(a, b), torch.maximum(a, b)
-                continue
-            m = 1 << (j - reg_log)
-            partner = t[:, 0] ^ m
-            same_warp = (t[:, 0] >> LANE_LOG) == (partner >> LANE_LOG)
-            assert bool(same_warp.all()) == (kind == "lane"), (p, j, kind)
-            y = x[partner]
-            lower = (t & m) == 0
-            x = torch.where(lower, torch.minimum(x, y), torch.maximum(x, y))
-    if bool((x > 0xFFFFFFFF).any() or (x < 0).any()):
-        raise AssertionError("keys left the uint32 range")
-    return from_int64(x.reshape(-1)[:n])
+    2^reg_log keys a thread: one block of the tile network
+    (:func:`ops.block_sort.tile_network_emulated`) spanning 2^LOG slots,
+    LOG = :func:`network_log`, and all LOG phases ascending; the pads are
+    0xFFFFFFFF.  Returns the first n slots."""
+    log = network_log(keys.numel(), reg_log)
+    return tile_network_emulated(keys, 1 << log, reg_log=reg_log, block_log=log)
 
 
 def sort_single_block_plain(keys: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,13 @@
 (single_block, the port of B3) vs the JAX package's Pallas kernels in
 interpret mode, at the small geometry tests/test_pallas_merge.py uses.  On a
 CPU tensor the port runs the kernels' plain versions; csrc/block_sort.cu
-itself is checked against them on the card by chip_smoke.py.  Outputs must
-be equal bytes."""
+itself is checked against them on the card by chip_smoke.py.  The tile
+pass's register network (block_sort.windowed_network_emulated: 2^14-slot
+blocks of 32 keys a thread, phases 1..log2(tile), round trips through
+shared memory into windows, pads by final direction) is emulated in torch
+and held against numpy, the plain version and JAX, as is B3's network
+(tile_network_emulated, every lane stride by shuffles) at the JAX tiles.
+Outputs must be equal bytes."""
 
 import re
 import shutil
@@ -22,6 +27,122 @@ from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
 from gpu_radix_sort_tpu_torch.ops import single_block as sb
 
 TILE = 2048  # the JAX tests' small geometry
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread a worker: the emulation's many small ops run
+    tens of times slower with a pool thread a core in each of the suite's
+    worker processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _tiles_numpy(keys: np.ndarray, tile: int, alternate: bool) -> np.ndarray:
+    """Each tile sorted by numpy, odd tiles reversed under ``alternate``."""
+    runs = [np.sort(keys[s:s + tile]) for s in range(0, keys.size, tile)]
+    return np.concatenate(
+        [r[::-1] if alternate and i % 2 else r for i, r in enumerate(runs)] or [keys])
+
+
+NETWORKS = {"windowed": bs.windowed_network_emulated, "shuffles": bs.tile_network_emulated}
+
+
+def _tile_keys(kind: str, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return Pcg32(state=seed).fill(n)
+    if kind == "duplicate":  # both ends of the range: ties with either pad
+        return np.array([0, 3, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)[rng.integers(0, 4, n)]
+    return np.full(n, 0xFFFFFFFF if kind == "all-max" else 0, np.uint32)
+
+
+@pytest.mark.parametrize("tile", [1, 2, 128, 512, 2048])
+@pytest.mark.parametrize("alternate", [False, True])
+@pytest.mark.parametrize("last", ["even", "odd"])
+def test_tile_network_emulated_ragged_last_tile(tile, alternate, last, one_torch_thread):
+    """n = k * tile + r with k even or odd: the short last tile keeps its
+    parity's direction and its pads (0 where it descends) are never
+    returned; two blocks of 2^14 slots where the tiles allow."""
+    k = (2 if last == "even" else 3) * max(1, 8192 // tile)
+    n = k * tile + max(1, tile // 3)
+    for kind in ("random", "duplicate"):
+        keys = _tile_keys(kind, n, n + tile)
+        got = bs.windowed_network_emulated(torch.from_numpy(keys), tile, alternate=alternate)
+        np.testing.assert_array_equal(got.numpy(), _tiles_numpy(keys, tile, alternate))
+        np.testing.assert_array_equal(
+            got.numpy(), bs.block_sort_plain(torch.from_numpy(keys), tile,
+                                             alternate=alternate).numpy())
+
+
+@pytest.mark.parametrize("kind", ["all-max", "all-zero"])
+@pytest.mark.parametrize("tile", [2, 512, 1024, bs.TILE])
+def test_tile_network_emulated_constant_keys(kind, tile, one_torch_thread):
+    """Keys equal to the ascending pad (all-max) or to the descending pad
+    (all-zero), with a ragged odd last tile."""
+    n = 3 * tile + 1
+    keys = _tile_keys(kind, n, 0)
+    got = bs.windowed_network_emulated(torch.from_numpy(keys), tile, alternate=True)
+    np.testing.assert_array_equal(got.numpy(), keys)
+
+
+@pytest.mark.parametrize("network", list(NETWORKS))
+@pytest.mark.parametrize("alternate", [False, True])
+def test_tile_network_emulated_matches_pallas(network, alternate, one_torch_thread):
+    keys = Pcg32(state=12).fill(4 * TILE)
+    want = np.asarray(
+        pm.sort_tiles(jnp.asarray(keys).reshape(-1, 128), TILE, alternate=alternate)
+    ).reshape(-1)
+    got = NETWORKS[network](torch.from_numpy(keys), TILE, alternate=alternate)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("tile", [64, 128, 1024, 2048, bs.TILE])
+@pytest.mark.parametrize("last", ["even", "odd"])
+def test_windowed_network_at_full_tiles(tile, last, one_torch_thread):
+    """Tiles of 2^7 and up take the round trips (two windows a phase, three
+    from 2^11): duplicate keys at both ends of the range, a ragged last
+    tile, two or three blocks."""
+    n = (4 if last == "even" else 5) * bs.TILE // (bs.TILE // tile) + 4321 % tile
+    keys = _tile_keys("duplicate", n, tile)
+    got = bs.windowed_network_emulated(torch.from_numpy(keys), tile, alternate=True)
+    np.testing.assert_array_equal(got.numpy(), _tiles_numpy(keys, tile, True))
+
+
+def test_window_plan_covers_every_stride_once():
+    """Each phase runs its strides p-1..0 once each, in order, every stride
+    inside the window it runs in (or a lane stride of window 0); phases of
+    2^7 and up make 2 or 3 round trips and end in window 0: 20 round trips
+    and one shuffle stage at 2^14 keys."""
+    trips = shuffles = 0
+    for p in range(1, bs.TILE_LOG + 1):
+        window, strides = 0, []
+        for step, v in bs.window_plan(p):
+            if step == "window":
+                window, trips = v, trips + 1
+                continue
+            strides.append(v)
+            if not window <= v < window + 5:
+                assert window == 0 and 5 <= v < 10
+                shuffles += 1
+        assert strides == list(range(p - 1, -1, -1)) and window == 0
+    assert (trips, shuffles) == (20, 1)
+
+
+@pytest.mark.parametrize("k", range(bs.TILE_LOG - 5 + 1))
+def test_window_words_are_a_conflict_free_permutation(k):
+    """Window k's words are the padded words of every slot once, the word
+    of register r is the thread's base word plus a constant, and the 32
+    lanes of a warp hit 32 different banks for every register."""
+    threads = 1 << (bs.TILE_LOG - 5)
+    words = bs.window_words(k, threads)
+    assert sorted(words.reshape(-1).tolist()) == [bs.padded_word(s) for s in range(bs.TILE)]
+    offsets = words - words[:, :1]
+    assert bool((offsets == offsets[0]).all())
+    banks = (words % 32).view(threads // 32, 32, 32)
+    assert bool((banks.sort(dim=1).values == torch.arange(32)[:, None]).all())
 
 
 @pytest.mark.parametrize("alternate", [False, True])
@@ -133,13 +254,13 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert build.build() == lib  # built already: nothing runs
 
 
-@pytest.mark.parametrize("edited", ["bitonic.cuh", "block_rank.cuh", "register_bitonic.cuh", "exchange.cu"])
+@pytest.mark.parametrize("edited", ["merge_path.cu", "block_rank.cuh", "register_bitonic.cuh", "exchange.cu"])
 def test_library_name_hashes_sources_and_shared_headers(tmp_path, monkeypatch, edited):
     """An edit to a shared header builds anew, as an edit to a source does."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    assert "bitonic.cuh" in {p.name for p in build._headers()}
+    assert {p.name for p in build._headers()} == {"block_rank.cuh", "register_bitonic.cuh"}
     before = build.library_path()
     assert build.library_path() == before
     with open(csrc / edited, "a") as f:

@@ -14,6 +14,7 @@ import torch
 
 from gpu_radix_sort_tpu.ops import pallas_sort
 from gpu_radix_sort_tpu.utils.keygen import Pcg32
+from gpu_radix_sort_tpu_torch.ops import block_sort as bs
 from gpu_radix_sort_tpu_torch.ops import single_block as sb
 
 
@@ -69,8 +70,8 @@ def test_network_schedule_places_each_stride(reg_log, counts):
     stays in a thread, below 32 times that in a warp, and only larger ones
     cross warps, one barrier each: at 2^14 keys and 16 keys a thread, 15 of
     the 105 stages."""
-    for log in range(reg_log + sb.LANE_LOG, 15):
-        schedule = sb.network_schedule(log, reg_log)
+    for log in range(reg_log + bs.LANE_LOG, 15):
+        schedule = bs.network_schedule(log, reg_log)
         assert len(schedule) == log * (log + 1) // 2
         for p in range(1, log + 1):
             assert [j for q, j, _ in schedule if q == p] == list(range(p - 1, -1, -1))

@@ -89,7 +89,7 @@ def build_variants(root: Path) -> dict[str, ctypes.CDLL]:
     for name, text in texts.items():
         d = root / name
         d.mkdir(parents=True)
-        for f in ("block_sort.cu", "exchange.cu", "bitonic.cuh"):
+        for f in ("block_sort.cu", "exchange.cu", "register_bitonic.cuh"):
             shutil.copy(build.CSRC / f, d / f)
         (d / "block_rank.cuh").write_text(text)
         for f in ("block_sort", "exchange"):
