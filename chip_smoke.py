@@ -31,17 +31,30 @@
    the one-block counting route), B5's library call (a stable torch.sort of
    the digits), profiles sort_full and the partial sorts by kernel
    (torch.profiler);
-7. holds segment_copy (B6) and group_sort_send (B7) against their plain
+7. drives the key-value, 64-bit and table paths at the JAX harness's sizes
+   (kv_table_path), each with the launch counts set to 0 just before and
+   read just after and exact against a numpy oracle: sort_key_value of
+   128Mi PCG32 keys with 8- and 64-byte payloads and as float32 keys;
+   sort_key_value_by_digits(0, 8) of the 256Mi keys with (n, 4) uint32
+   lanes, binning_pass_kv; sort_full_u64, sort_partial_u64 and
+   sort_partial_counts_u64 at (0, 8) and (28, 16), stable and not, of 256Mi
+   uint64 keys, sort_key_value_u64 of 128Mi of them with 8 bytes, int64 and
+   float64 keys (NaNs, +-0.0) at 2^20; partition_by_ids of the 256Mi keys
+   into 256 parts, filter_range, and group_aggregate count, uint32 sum and
+   float32 sum (the same bytes on two calls, within 1e-5 of float64 sums)
+   over 256Mi Zipf(1.1) keys; times each and its "torch" route, its peak
+   memory, and profiles the 64-byte kv sort and sort_partial_u64(28, 16);
+8. holds segment_copy (B6) and group_sort_send (B7) against their plain
    versions byte for byte, on 1 to 8 ranks of one card, schedules from
    uniform, duplicate, presorted, skewed and all-equal keys, 64Mi keys a
    rank on 4 ranks, and B6 at every word offset of source and receivers
    past a 16-byte boundary on 1 and 4 ranks;
-8. drives the third main path -- sort_distributed of the same 256Mi keys at
+9. drives the third main path -- sort_distributed of the same 256Mi keys at
    width 8 through exchange="rdma" on key_mesh() -- with the launch counts
    set to 0 just before and read just after, exact against np.sort; then on
    four ranks of cuda:0 through "rdma" and "rdma_overlap" the same way, and
    width 16, the collective exchanges, all-equal and typed keys;
-9. times the mesh sorts, one tile pass and one merge level of the 256Mi
+10. times the mesh sorts, one tile pass and one merge level of the 256Mi
    keys, one B6 launch (destination aligned and shifted by one key, beside
    copy_ of the same bytes) and one B7 round, and profiles the one-rank rdma
    sort and the four-rank rdma_overlap sort by kernel.
@@ -248,6 +261,38 @@ def total_order_np(a: np.ndarray) -> np.ndarray:
     return u ^ np.where(u >> np.uint32(31), np.uint32(0xFFFFFFFF), np.uint32(0x80000000))
 
 
+def total_order_np64(a: np.ndarray) -> np.ndarray:
+    """numpy IEEE-754 totalOrder bits of int64 / float64 keys as uint64
+    (independent of the port's codecs)."""
+    u = a.view(np.uint64)
+    if a.dtype == np.int64:
+        return u ^ np.uint64(1 << 63)
+    return u ^ np.where(u >> np.uint64(63), np.uint64((1 << 64) - 1), np.uint64(1 << 63))
+
+
+def stable_order_u32(k: np.ndarray) -> np.ndarray:
+    """np.argsort(k, kind="stable") of uint32 keys, as one sort of the
+    distinct (key << 32 | index) words: the same permutation in seconds
+    where the timsort of 2^27 keys takes tens of them."""
+    idx = np.arange(k.size, dtype=np.uint64)
+    return (np.sort((k.astype(np.uint64) << np.uint64(32)) | idx) & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def hash_np(k: np.ndarray) -> np.ndarray:
+    """The table operators' uint32 hash in numpy uint32 arithmetic."""
+    with np.errstate(over="ignore"):
+        x = k.astype(np.uint32) * np.uint32(2654435769)
+        x ^= x >> np.uint32(15)
+        x = x * np.uint32(0x2C1B3C6D)
+        x ^= x >> np.uint32(12)
+    return x
+
+
+def run_starts(sorted_keys: np.ndarray) -> np.ndarray:
+    """Indices where a run of equal keys starts."""
+    return np.flatnonzero(np.concatenate([[True], sorted_keys[1:] != sorted_keys[:-1]]))
+
+
 def exchange_inputs(rng, n: int):
     """The key distributions the exchange kernels are held on: their
     schedules run from even to all-in-one-peer, with empty segments."""
@@ -438,7 +483,7 @@ def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
 
 def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
               b6_info: dict, b7_info: dict) -> dict:
-    """Steps 7-9: the exchange kernels, the mesh LSD sort of ``part`` (256Mi
+    """Steps 8-10: the exchange kernels, the mesh LSD sort of ``part`` (256Mi
     PCG32 keys on the card) and their times.  Returns the results for the
     JSON line (``b6_info`` and ``b7_info``, the kernels' ptxas reports and
     B7's occupancy, go into their rows)."""
@@ -654,17 +699,7 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
 
     for what, fn in ((f"rdma, {P1} rank", lambda: fn1(shards1)),
                      (f"rdma_overlap, {MESH_RANKS} ranks on {dev}", lambda: fn4o(shards4))):
-        prof = device_profile(fn)
-        if prof is None:
-            log(f"profile [{card}]: sort_distributed {what}: the profiler saw no device "
-                f"work (not measured)")
-            continue
-        by_name, idle = prof
-        total = sum(by_name.values())
-        log(f"profile [{card}]: sort_distributed {what}, {N_MESH} keys: device "
-            f"{total:.3f} ms a call over 3 calls, idle share {idle:.4f}; top:")
-        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-            log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
+        log_profile(card, f"sort_distributed {what}, {N_MESH} keys", fn, top=10)
 
     res["kernels"] = [
         ("segment_copy", "exchange.cu", "gpu_radix_sort_tpu/parallel/rdma_exchange.py:60",
@@ -680,6 +715,339 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     ]
     res["n_mesh"] = N_MESH
     return res
+
+
+def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> dict:
+    """The key-value, 64-bit and table paths at the JAX harness's sizes
+    (gpu_radix_sort_tpu/bench/harness.py:125-207): each exact against a
+    numpy oracle, with the launch counts set to 0 just before and read just
+    after, its peak device memory, its time and its "torch" route's (median
+    of 10 by CUDA events), and profiles of two of them.  ``part`` holds the
+    256Mi PCG32 keys of the partial path (on the card), ``part_np`` the same
+    on the host.  Returns the results for the JSON line."""
+    import gpu_radix_sort_tpu_torch as port
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.ops import table
+    from gpu_radix_sort_tpu_torch.ops.bits import digits64, decode_ordered64, encode_ordered64
+    from gpu_radix_sort_tpu_torch.utils import checks, keygen, timers
+
+    counters = {"block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
+                "single_block_sort": sb}
+    none = dict.fromkeys(counters, 0)
+    res = {"launches": {}, "peak_mib": {}, "ms": {}, "torch_ms": {}, "card": card}
+
+    def run(name: str, fn, expect: dict):
+        """fn() with the counts set to 0 just before and read just after;
+        fails unless they are ``expect`` (kernels not named: 0)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: mod.launches for k, mod in counters.items()}
+        want = {**none, **expect}
+        if got != want:
+            fail(f"{name}: launches {got}, expected {want}")
+        res["launches"][name] = {k: v for k, v in got.items() if v}
+        res["peak_mib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        return out
+
+    def same(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+        got = got.cpu().numpy()
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(
+                got.view(np.uint8), np.ascontiguousarray(want).view(np.uint8)):
+            fail(f"{what} differs from the numpy oracle")
+
+    def timed(name: str, fn, torch_fn=None) -> None:
+        res["ms"][name] = timers.time_cuda(fn)
+        if torch_fn is not None:
+            res["torch_ms"][name] = timers.time_cuda(torch_fn)
+        log(f"time [{card}]: {name} {res['ms'][name]:.3f} ms; its torch route "
+            f"{res['torch_ms'].get(name, float('nan')):.3f} ms; launches "
+            f"{res['launches'].get(name)}; peak device memory "
+            f"{res['peak_mib'].get(name, float('nan')):.0f} MiB above its inputs")
+
+    def torch_default(fn):
+        """fn with the port's default strategy set to "torch"."""
+        def call():
+            port.set_default_strategy("torch")
+            try:
+                return fn()
+            finally:
+                port.set_default_strategy("auto")
+        return call
+
+    passes32 = 32 // bn.PASS_WIDTH
+    t0 = time.perf_counter()
+
+    # -- sort_key_value of 128Mi PCG32 keys (kv_sort_u32_p8B / p64B) --------
+    n = part.numel()
+    n_kv = n // 2
+    keys, keys_np = part[:n_kv], part_np[:n_kv]
+    order = stable_order_u32(keys_np)  # the oracle of both payloads
+    payload8_np = keygen.generate_payloads(n_kv, payload_bytes=8)
+    payload8 = torch.from_numpy(payload8_np).to(dev)
+    kv_expect = {"binning": 2 * passes32}  # keys and the row index a pass
+    sk, sv = run("sort_key_value p8B", lambda: port.sort_key_value(keys, payload8), kv_expect)
+    same(sk, keys_np[order], "sort_key_value p8B keys")
+    same(sv, payload8_np[order], "sort_key_value p8B payload")
+    del sk, sv
+    timed("sort_key_value p8B", lambda: port.sort_key_value(keys, payload8),
+          lambda: port.sort_key_value(keys, payload8, strategy="torch"))
+    payload64_np = keygen.generate_payloads(n_kv, payload_bytes=64)
+    payload64 = torch.from_numpy(payload64_np).to(dev)
+    sk, sv = run("sort_key_value p64B", lambda: port.sort_key_value(keys, payload64), kv_expect)
+    same(sk, keys_np[order], "sort_key_value p64B keys")
+    same(sv, payload64_np[order], "sort_key_value p64B payload")
+    del sk, sv, payload64_np
+    timed("sort_key_value p64B", lambda: port.sort_key_value(keys, payload64),
+          lambda: port.sort_key_value(keys, payload64, strategy="torch"))
+    res["p64B_bound_ms"] = bound(2 * n_kv * (4 + 64), 0)[0]  # keys and rows, read and written
+    log_profile(card, f"sort_key_value p64B of {n_kv} rows",
+                lambda: port.sort_key_value(keys, payload64))
+    del payload64
+    f32 = keys.view(torch.float32)
+    order_f = stable_order_u32(total_order_np(keys_np.view(np.float32)))
+    sk, sv = run("sort_key_value f32 keys p8B", lambda: port.sort_key_value(f32, payload8),
+                 kv_expect)
+    same(sk, keys_np.view(np.float32)[order_f], "sort_key_value f32 keys")
+    same(sv, payload8_np[order_f], "sort_key_value f32 payload")
+    del sk, sv, order_f, order
+    timed("sort_key_value f32 keys p8B", lambda: port.sort_key_value(f32, payload8),
+          lambda: port.sort_key_value(f32, payload8, strategy="torch"))
+    del payload8
+    log(f"kv path: sort_key_value of {n_kv} PCG32 keys with 8- and 64-byte payloads "
+        f"and as float32 keys, exact against numpy's stable order "
+        f"({time.perf_counter() - t0:.1f} s so far)")
+
+    # -- sort_key_value_by_digits at 256Mi, w8, (n, 4) uint32 lanes ----------
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    lanes = torch.stack([idx, idx ^ 0x5BD1E995, part.view(torch.int32),
+                         ~part.view(torch.int32)], dim=1).view(torch.uint32)
+    del idx
+    sk, sl = run("sort_key_value_by_digits w8 lanes4",
+                 lambda: port.sort_key_value_by_digits(part, lanes, 0, 8),
+                 {"binning": 2 * 2})
+    order = np.argsort((part_np & np.uint32(0xFF)).astype(np.uint8), kind="stable")
+    same(sk, part_np[order], "sort_key_value_by_digits w8 keys")
+    o32 = order.astype(np.uint32)
+    want = np.stack([o32, o32 ^ np.uint32(0x5BD1E995), part_np[order], ~part_np[order]], axis=1)
+    same(sl, want, "sort_key_value_by_digits w8 lanes")
+    del sk, sl, want, o32, order
+    timed("sort_key_value_by_digits w8 lanes4",
+          lambda: port.sort_key_value_by_digits(part, lanes, 0, 8),
+          lambda: port.sort_key_value_by_digits(part, lanes, 0, 8, strategy="torch"))
+    n_pass = 1 << 20
+    sk, sl = bn.binning_pass_kv(part[:n_pass], lanes[:n_pass], 0, 8)
+    order = np.argsort((part_np[:n_pass] & np.uint32(0xFF)).astype(np.uint8), kind="stable")
+    same(sk, part_np[:n_pass][order], "binning_pass_kv keys")
+    same(sl, lanes[:n_pass].cpu().numpy()[order], "binning_pass_kv lanes")
+    del lanes, sk, sl, order
+    log(f"kv path: sort_key_value_by_digits(0, 8) of {n} keys with (n, 4) uint32 "
+        f"lanes, and binning_pass_kv at {n_pass}, exact")
+
+    # -- 64-bit keys: 256Mi uint64 from default_rng(64) ----------------------
+    torch.cuda.empty_cache()
+    u64_np = np.random.default_rng(64).integers(0, 1 << 64, n, dtype=np.uint64)
+    u64 = torch.from_numpy(u64_np).to(dev)
+    out = run("sort_full_u64", lambda: port.sort_full_u64(u64), {})
+    want = np.sort(u64_np)
+    same(out, want, "sort_full_u64")
+    del out
+    timed("sort_full_u64", lambda: port.sort_full_u64(u64))
+    for offset, width in ((0, 8), (28, 16)):
+        d = ((u64_np >> np.uint64(offset)) & np.uint64((1 << width) - 1))
+        d = d.astype(np.uint8 if width <= 8 else np.uint16)
+        order = np.argsort(d, kind="stable")
+        sd = d[order].astype(np.uint32)
+        want_b = checks.boundaries_oracle(sd, 0, width)
+        want_c = np.bincount(d, minlength=1 << width).astype(np.int32)
+        name = f"sort_partial_u64 ({offset}, {width}) stable"
+        passes = -(-width // bn.PASS_WIDTH)
+        out, b = run(name, lambda: port.sort_partial_u64(u64, offset, width),
+                     {"binning": 3 * passes})  # the digit and the two words
+        same(out, u64_np[order], name)
+        same(b, want_b, f"{name} boundaries")
+        del out, b
+        out, c = port.sort_partial_counts_u64(u64, offset, width)
+        same(out, u64_np[order], f"{name} (counts)")
+        same(c, want_c, f"{name} counts")
+        del out, c, order
+        def partial_torch(offset=offset, width=width):
+            s = encode_ordered64(u64)
+            d = digits64(s, offset, width).view(torch.int32)
+            o = torch.sort(d.to(torch.uint8) if width <= 8 else d, stable=True).indices
+            return decode_ordered64(s[o], torch.uint64)
+
+        timed(name, lambda: port.sort_partial_u64(u64, offset, width), partial_torch)
+        name = f"sort_partial_u64 ({offset}, {width}) unstable"
+        r = (offset + width) % 64
+        rot = np.sort((u64_np >> np.uint64(r)) | (u64_np << np.uint64(64 - r)))
+        want = (rot << np.uint64(r)) | (rot >> np.uint64(64 - r))
+        out, c = run(name, lambda: port.sort_partial_counts_u64(u64, offset, width, stable=False), {})
+        same(out, want, name)
+        same(c, want_c, f"{name} counts")
+        out, b = port.sort_partial_u64(u64, offset, width, stable=False)
+        same(b, want_b, f"{name} boundaries")
+        del out, b, c, rot, want
+        timed(name, lambda: port.sort_partial_u64(u64, offset, width, stable=False))
+    log_profile(card, f"sort_partial_u64(28, 16) stable of {n} keys",
+                lambda: port.sort_partial_u64(u64, 28, 16))
+    log(f"u64 path: sort_full_u64, sort_partial_u64 and sort_partial_counts_u64 at "
+        f"(0, 8) and (28, 16), stable and not, of {n} uint64 keys, exact "
+        f"({time.perf_counter() - t0:.1f} s so far)")
+
+    keys64, keys64_np = u64[:n_kv], u64_np[:n_kv]
+    payload8 = torch.from_numpy(payload8_np).to(dev)
+    s64 = np.sort(keys64_np)
+    if np.all(s64[1:] != s64[:-1]):  # distinct keys: every order is the stable one
+        order = np.argsort(keys64_np)
+    else:
+        order = np.argsort(keys64_np, kind="stable")
+    del s64
+    name = "sort_key_value_u64 p8B"
+    sk, sv = run(name, lambda: port.sort_key_value_u64(keys64, payload8),
+                 {"binning": 2 * passes32 * 3})  # two words, a row index
+    same(sk, keys64_np[order], f"{name} keys")
+    same(sv, payload8_np[order], f"{name} payload")
+    del sk, sv, order
+
+    def kv64_torch():
+        o = torch.sort(encode_ordered64(keys64), stable=True).indices
+        return keys64.view(torch.int64)[o], payload8[o]
+
+    timed(name, lambda: port.sort_key_value_u64(keys64, payload8), kv64_torch)
+    del u64, keys64, payload8
+    n_typed = 1 << 20
+    rng = np.random.default_rng(65)
+    i64 = rng.integers(-(1 << 63), (1 << 63) - 1, n_typed, dtype=np.int64)
+    i64[::5] = i64[3]
+    f64 = rng.standard_normal(n_typed) * 1e6
+    f64[:8] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 0.0, -0.0]
+    f64[8::97] = -0.0
+    f64[9::89] = np.nan
+    for typed in (i64, f64):
+        x = torch.from_numpy(typed).to(dev)
+        enc = total_order_np64(typed)
+        order = np.argsort(enc, kind="stable")
+        what = f"{typed.dtype} keys"
+        same(port.sort_full_u64(x), typed[order], f"sort_full_u64 of {what}")
+        vals = np.arange(n_typed, dtype=np.uint32)
+        sk, sv = run(f"sort_key_value_u64 {typed.dtype}",
+                     lambda: port.sort_key_value_u64(x, torch.from_numpy(vals).to(dev)),
+                     {"binning": 2 * passes32 * 3})  # two words, the column
+        same(sk, typed[order], f"sort_key_value_u64 of {what}")
+        same(sv, vals[order], f"sort_key_value_u64 payload of {what}")
+        d = ((enc >> np.uint64(56)) & np.uint64(0xFF)).astype(np.uint8)
+        o = np.argsort(d, kind="stable")
+        out, c = port.sort_partial_counts_u64(x, 56, 8)
+        same(out, typed[o], f"sort_partial_u64(56, 8) of {what}")
+        same(c, np.bincount(d, minlength=256).astype(np.int32), f"counts of {what}")
+    log(f"u64 path: sort_key_value_u64 of {n_kv} keys with an 8-byte payload; "
+        f"int64 and float64 (NaNs, +-0.0, +-inf) at {n_typed}: sort_full_u64, "
+        f"sort_key_value_u64, sort_partial_counts_u64(56, 8), exact")
+    del payload8_np, u64_np, keys64_np
+    torch.cuda.empty_cache()
+
+    # -- tables ---------------------------------------------------------------
+    nparts = 256
+    ids = table.hash_partition_ids(part, nparts)
+    ids_np = hash_np(part_np) >> np.uint32(24)
+    same(ids, ids_np, "hash_partition_ids")
+    order = np.argsort(ids_np.astype(np.uint8), kind="stable")
+    name = "partition_by_ids 256"
+    got, counts = run(name, lambda: table.partition_by_ids(part, ids, nparts), {"binning": 2 * 2})
+    same(got, part_np[order], name)
+    same(counts, np.bincount(ids_np, minlength=nparts).astype(np.int32), f"{name} counts")
+    del got, counts, order, ids_np
+    timed(name, lambda: table.partition_by_ids(part, ids, nparts),
+          torch_default(lambda: table.partition_by_ids(part, ids, nparts)))
+    del ids
+    lo, hi = 1 << 30, 3 << 30
+    name = "filter_range half"
+    got, count = run(name, lambda: table.filter_range(part, lo, hi), {})
+    want = part_np[(part_np >= lo) & (part_np < hi)]
+    if int(count) != want.size:
+        fail(f"{name}: count {int(count)}, expected {want.size}")
+    same(got[:want.size], want, name)
+    del got, want
+    timed(name, lambda: table.filter_range(part, lo, hi))
+    log(f"table path: hash_partition_ids and partition_by_ids of {n} PCG32 keys "
+        f"into {nparts} parts, filter_range [2^30, 3 * 2^30), exact")
+
+    zipf_np = keygen.generate_zipf_keys(n, alpha=1.1)
+    zipf = torch.from_numpy(zipf_np).to(dev)
+    order = stable_order_u32(zipf_np)
+    zs = zipf_np[order]
+    starts = run_starts(zs)
+    uniq_np = zs[starts]
+    levels = (n // bs.TILE - 1).bit_length()
+    name = "group_aggregate count zipf"
+    uniq, agg, ng = run(name, lambda: table.group_aggregate(zipf, None, "count"),
+                        {"block_sort": 1, "merge_level": levels})
+    g = int(ng)
+    if g != starts.size:
+        fail(f"{name}: {g} groups, expected {starts.size}")
+    same(uniq[:g], uniq_np, f"{name} keys")
+    same(agg[:g], np.diff(np.append(starts, n)).astype(np.uint32), name)
+    del uniq, agg
+    timed(name, lambda: table.group_aggregate(zipf, None, "count"),
+          lambda: torch.unique(zipf.view(torch.int32), return_counts=True))
+    vals = part  # uint32 values: the PCG32 keys
+    name = "group_aggregate u32 sum zipf"
+    uniq, agg, ng = run(name, lambda: table.group_aggregate(zipf, vals, "sum"),
+                        {"binning": 2 * passes32})
+    want = (np.add.reduceat(part_np[order].astype(np.uint64), starts) & np.uint64(0xFFFFFFFF))
+    same(uniq[:g], uniq_np, f"{name} keys")
+    same(agg[:g], want.astype(np.uint32), name)
+    del uniq, agg, want
+    timed(name, lambda: table.group_aggregate(zipf, vals, "sum"),
+          torch_default(lambda: table.group_aggregate(zipf, vals, "sum")))
+    fvals_np = (part_np >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    fvals = torch.from_numpy(fvals_np).to(dev)
+    name = "group_aggregate f32 sum zipf"
+    _, agg, _ = run(name, lambda: table.group_aggregate(zipf, fvals, "sum"),
+                    {"binning": 2 * passes32})
+    _, again, _ = table.group_aggregate(zipf, fvals, "sum")
+    if not torch.equal(agg.view(torch.int32), again.view(torch.int32)):
+        fail(f"{name}: two calls gave different bytes")
+    want = np.add.reduceat(fvals_np[order].astype(np.float64), starts)
+    got = agg[:g].cpu().numpy().astype(np.float64)
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+    if rel > 1e-5 or agg[g:].any():
+        fail(f"{name}: relative error {rel} against float64 sums (limit 1e-5)")
+    res["f32_sum_max_rel_err"] = rel
+    del agg, again, want, got
+    timed(name, lambda: table.group_aggregate(zipf, fvals, "sum"))
+    log(f"table path: group_aggregate count and uint32 sum over {n} Zipf(1.1) keys "
+        f"({g} groups, the largest {int(np.diff(np.append(starts, n)).max())} rows) "
+        f"exact; float32 sum the same bytes on two calls, within {rel:.3g} of "
+        f"float64 sums (limit 1e-5) ({time.perf_counter() - t0:.1f} s in these paths)")
+    del zipf, fvals, order, zs, starts, uniq_np, zipf_np, fvals_np
+    torch.cuda.empty_cache()
+    res["n_kv"], res["n"] = n_kv, n
+    return res
+
+
+def log_profile(card: str, what: str, fn, top: int = 8) -> None:
+    """Profile ``fn`` (device_profile) and log its device time a call, its
+    idle share and the ``top`` kernels that took most."""
+    prof = device_profile(fn)
+    if prof is None:
+        log(f"profile [{card}]: {what}: the profiler saw no device work (not measured)")
+        return
+    by_name, idle = prof
+    total = sum(by_name.values())
+    log(f"profile [{card}]: {what}: device {total:.3f} ms a call over 3 calls, idle "
+        f"share {idle:.4f}; top:")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
 
 
 def main() -> int:
@@ -999,16 +1367,7 @@ def main() -> int:
     block_bound = bound(8 * N_MAIN, N_MAIN // 2 * network_stages(TILE))
     single_bound = bound(8 * TILE, TILE // 2 * network_stages(TILE))
     merge_bound = bound(8 * N_MAIN, N_MAIN)
-    prof = device_profile(lambda: rs.sort_full(keys))
-    if prof is None:
-        log(f"profile [{card}]: sort_full: the profiler saw no device work (not measured)")
-    else:
-        by_name, idle = prof
-        total = sum(by_name.values())
-        log(f"profile [{card}]: sort_full of {N_MAIN} keys: device {total:.3f} ms a call "
-            f"over 3 calls, idle share {idle:.4f}; top:")
-        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
+    log_profile(card, f"sort_full of {N_MAIN} keys", lambda: rs.sort_full(keys), top=6)
     del keys, keys_np, big, out, runs, pairs, top, rows, one_block, ints, floats, got, s, b
     del flipped, one_out
     torch.cuda.empty_cache()
@@ -1152,20 +1511,12 @@ def main() -> int:
         f"{peak_part:.0f} MiB above the {N_PART * 4 / 2**20:.0f} MiB of keys")
 
     for w in (4, 16):
-        prof = device_profile(lambda: rs.sort_partial(part, 0, w))
-        if prof is None:
-            log(f"profile [{card}]: sort_partial(0, {w}): the profiler saw no "
-                f"device work (not measured)")
-            continue
-        by_name, idle = prof
-        total = sum(by_name.values())
-        log(f"profile [{card}]: sort_partial(0, {w}) of {N_PART} keys: device "
-            f"{total:.3f} ms a call over 3 calls, idle share {idle:.4f}; top:")
-        for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            log(f"  {t:8.3f} ms {100 * t / total:5.1f}%  {name[:90]}")
+        log_profile(card, f"sort_partial(0, {w}) of {N_PART} keys",
+                    lambda: rs.sort_partial(part, 0, w))
 
     del vals
     torch.cuda.empty_cache()
+    kv = kv_table_path(dev, card, part, part_np)
     mesh = mesh_path(dev, rng, card, part, part_np, rank_info["segment_copy_kernel"],
                      rank_info["group_sort_send_kernel"])
 
@@ -1180,6 +1531,7 @@ def main() -> int:
         kernel("block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:131",
                launches["block_sort"], err_block, ms_block, ms_block_plain,
                block_bound, ms_block_lib, network="register_bitonic.cuh, windowed",
+               launches_group_aggregate=kv["launches"]["group_aggregate count zipf"]["block_sort"],
                pass_256Mi_ms=mesh["tile_pass_256Mi_ms"],
                launches_mesh_one_rank=mesh["launches_one_rank"]["block_sort"],
                **rank_info["block_sort_kernel"]),
@@ -1193,6 +1545,7 @@ def main() -> int:
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
                merge_bound, ms_merge_lib, top_level_ms=ms_merge_top,
+               launches_group_aggregate=kv["launches"]["group_aggregate count zipf"]["merge_level"],
                level_256Mi_ms=mesh["merge_level_256Mi_ms"],
                launches_mesh_one_rank=mesh["launches_one_rank"]["merge_level"],
                **rank_info["merge_level_kernel"]),
@@ -1204,12 +1557,15 @@ def main() -> int:
         kernel("binning", "binning.cu", "gpu_radix_sort_tpu/ops/pallas_radix.py:205",
                sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
                bin_bound, ms_bin_lib, launches_by_width=part_launches,
-               kv_launches=kv_launches, stage_a_ms=ms_stage_a),
+               kv_launches=kv_launches, stage_a_ms=ms_stage_a,
+               launches_kv_u64_table={k: v["binning"] for k, v in kv["launches"].items()
+                                      if "binning" in v}),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
-        "n_partial": N_PART, "peak_mib_partial": peak_part, **mesh, "card": card}))
+        "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
+        "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,9 @@ the device of the tensor they are given.  On a CUDA tensor the sorts go
 through kernels written by hand for Hopper (``csrc/``, built with nvcc at
 first use); on a CPU tensor through those kernels' plain PyTorch versions.
 The mesh sorts run over a list of devices held by one process
-(``parallel/``).  This package imports neither jax nor the JAX package.
+(``parallel/``); the table operators (hash partition, filter, group
+aggregate) are in ``ops/table.py``.  This package imports neither jax nor
+the JAX package.
 """
 
 from .models.pipelines import (
@@ -20,21 +22,37 @@ from .ops.radix_sort import (
     set_default_strategy,
     sort_by_digits,
     sort_full,
+    sort_full_u64,
+    sort_key_value,
     sort_key_value_by_digits,
+    sort_key_value_u64,
     sort_partial,
     sort_partial_counts,
+    sort_partial_counts_u64,
+    sort_partial_u64,
 )
 from .parallel import build_distributed_sort, key_mesh, sort_distributed
-from .utils.keygen import Pcg32, generate_keys, reset_global_stream
+from .utils.keygen import (
+    Pcg32,
+    generate_keys,
+    generate_payloads,
+    generate_zipf_keys,
+    reset_global_stream,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "sort_full",
+    "sort_full_u64",
     "sort_partial",
+    "sort_partial_u64",
     "sort_partial_counts",
+    "sort_partial_counts_u64",
     "sort_by_digits",
+    "sort_key_value",
     "sort_key_value_by_digits",
+    "sort_key_value_u64",
     "set_default_strategy",
     "get_default_strategy",
     "compute_boundaries",
@@ -44,6 +62,8 @@ __all__ = [
     "Pcg32",
     "generate_keys",
     "reset_global_stream",
+    "generate_zipf_keys",
+    "generate_payloads",
     "sort_distributed",
     "build_distributed_sort",
     "key_mesh",

@@ -228,6 +228,34 @@ def binning_pass_kv_cols(
     return stage_b(sorted_keys), tuple(stage_b(c) for c in sorted_cols)
 
 
+def _columns(lanes: torch.Tensor) -> tuple:
+    """The (n,) columns of (n, L) uint32 lanes (copied through int32: the
+    CUDA copy of strided uint32 is not one every build has)."""
+    words = lanes.view(torch.int32)
+    return tuple(words[:, w].contiguous().view(KEY_DTYPE) for w in range(lanes.shape[1]))
+
+
+def _lanes(cols: tuple) -> torch.Tensor:
+    """Inverse of :func:`_columns`."""
+    return torch.stack([c.view(torch.int32) for c in cols], dim=1).view(KEY_DTYPE)
+
+
+def binning_pass_kv(
+    keys: torch.Tensor, lanes: torch.Tensor, offset: int, width: int, *,
+    tile: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(n, L)-matrix form of :func:`binning_pass_kv_cols`: one stable pass
+    over the keys and the L uint32 lanes of each row."""
+    if lanes.dim() != 2 or lanes.shape[0] != keys.shape[0]:
+        raise ValueError(
+            f"lanes must be (n, L) with n == len(keys); got {tuple(lanes.shape)}"
+        )
+    out_keys, out_cols = binning_pass_kv_cols(
+        keys, _columns(lanes), offset, width, tile=tile
+    )
+    return out_keys, _lanes(out_cols) if out_cols else lanes
+
+
 def binning_pass(
     keys: torch.Tensor, offset: int, width: int, *, tile: int | None = None
 ) -> torch.Tensor:
@@ -241,15 +269,23 @@ def sort_key_value_by_digits_large(
     keys: torch.Tensor, cols: tuple, offset: int, width: int, *,
     tile: int | None = None,
 ) -> tuple[torch.Tensor, tuple]:
-    """Stable sort of keys and (n,) uint32 payload columns by bits
-    [offset, offset+width), as LSD passes of PASS_WIDTH bits."""
+    """Stable sort of keys and uint32 payload by bits [offset,
+    offset+width), as LSD passes of PASS_WIDTH bits.  ``cols`` is a tuple of
+    (n,) columns or an (n, L) matrix; the payload comes back in the same
+    form."""
     validate_digit_range(offset, width)
+    matrix = isinstance(cols, torch.Tensor) and cols.dim() == 2
+    if matrix:
+        lanes = cols
+        cols = _columns(lanes)
     cols = tuple(cols)
     done = 0
     while done < width:
         w = min(PASS_WIDTH, width - done)
         keys, cols = binning_pass_kv_cols(keys, cols, offset + done, w, tile=tile)
         done += w
+    if matrix:
+        return keys, _lanes(cols) if cols else lanes
     return keys, cols
 
 

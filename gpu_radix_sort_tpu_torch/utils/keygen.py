@@ -8,6 +8,10 @@ the JAX package, so both packages sort the same keys.
 
 The fill is vectorized with LCG jump-ahead: the state recurrence
 ``s' = s*A + C (mod 2^64)`` admits closed-form doubling.
+
+:func:`generate_zipf_keys` and :func:`generate_payloads` (skewed keys and
+row payloads for the key-value and aggregate paths) draw from numpy's
+``default_rng`` by seed, so they give the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -83,3 +87,22 @@ def generate_keys(n: int) -> np.ndarray:
 def reset_global_stream() -> None:
     """Rewind the process-global stream to the reference's initial state."""
     _GLOBAL.state = PCG32_INIT_STATE
+
+
+def generate_zipf_keys(
+    n: int, *, alpha: float = 1.1, universe: int = 2**32, seed: int = 0
+) -> np.ndarray:
+    """Skewed uint32 keys: Zipf-distributed ranks spread over the key
+    universe by a multiplicative (Fibonacci) hash, so hot keys land across
+    the radix space while duplicates stay duplicates."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(alpha, size=n).astype(np.uint64)
+    mixed = (ranks * np.uint64(11400714819323198485)) >> np.uint64(64 - 32)
+    return (mixed % np.uint64(universe)).astype(np.uint32)
+
+
+def generate_payloads(n: int, *, payload_bytes: int = 64, seed: int = 1) -> np.ndarray:
+    """Row payloads for key-value sorts: (n, payload_bytes) uint8, made from
+    ``seed`` independently of the key stream."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(n, payload_bytes), dtype=np.uint8)

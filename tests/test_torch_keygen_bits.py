@@ -1,6 +1,6 @@
-"""PyTorch port vs the JAX package: PCG32 stream, bit helpers, key codecs
-and numpy oracles.  Same inputs to both sides; outputs must be equal
-bytes."""
+"""PyTorch port vs the JAX package: PCG32 stream, Zipf keys and payloads,
+bit helpers, the 32- and 64-bit key codecs and numpy oracles.  Same inputs
+to both sides; outputs must be equal bytes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +9,7 @@ import torch
 
 from gpu_radix_sort_tpu.ops import bits as jbits
 from gpu_radix_sort_tpu.utils import checks as jchecks
+from gpu_radix_sort_tpu.utils import keygen as jkeygen
 from gpu_radix_sort_tpu.utils.keygen import Pcg32 as JaxPcg32
 from gpu_radix_sort_tpu_torch.ops import bits
 from gpu_radix_sort_tpu_torch.utils import checks, keygen
@@ -127,3 +128,76 @@ def test_oracles_match_jax(offset, width):
         checks.bucket_counts_from_boundaries(b, keys.size),
         jchecks.bucket_counts_from_boundaries(b, keys.size),
     )
+
+
+@pytest.mark.parametrize("n,alpha,universe,seed", [
+    (0, 1.1, 2**32, 0), (5000, 1.1, 2**32, 0), (3000, 1.3, 2**32, 3), (2000, 2.0, 1000, 9)])
+def test_generate_zipf_keys_match_jax(n, alpha, universe, seed):
+    got = keygen.generate_zipf_keys(n, alpha=alpha, universe=universe, seed=seed)
+    want = jkeygen.generate_zipf_keys(n, alpha=alpha, universe=universe, seed=seed)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,payload_bytes,seed", [(0, 8, 1), (1000, 64, 1), (777, 7, 5)])
+def test_generate_payloads_match_jax(n, payload_bytes, seed):
+    got = keygen.generate_payloads(n, payload_bytes=payload_bytes, seed=seed)
+    want = jkeygen.generate_payloads(n, payload_bytes=payload_bytes, seed=seed)
+    assert got.dtype == np.uint8 and got.shape == (n, payload_bytes)
+    np.testing.assert_array_equal(got, want)
+
+
+def _words64(n: int = 2000) -> np.ndarray:
+    raw = np.random.default_rng(64).integers(0, 1 << 64, n, dtype=np.uint64)
+    raw[:12] = [0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1,
+                0x8000000000000001,  # -0.0 / INT64_MIN and its neighbours
+                0x7FF0000000000000, 0xFFF0000000000000,  # +inf, -inf
+                0x7FF8000000000000, 0xFFF8000000000000,  # +NaN, -NaN
+                0x7FF0000000000001, 0xFFF0000000000001]  # NaNs with payloads
+    return raw
+
+
+@pytest.mark.parametrize("s", [0, 1, 17, 31, 32, 33, 63, 64, 100])
+def test_rotr64_lanes_match_jax(s):
+    raw = _words64()
+    hi = (raw >> np.uint64(32)).astype(np.uint32)
+    lo = (raw & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    want_hi, want_lo = jbits.rotr64_lanes(jnp.asarray(hi), jnp.asarray(lo), s)
+    got_hi, got_lo = bits.rotr64_lanes(torch.from_numpy(hi), torch.from_numpy(lo), s)
+    np.testing.assert_array_equal(got_hi.numpy(), np.asarray(want_hi))
+    np.testing.assert_array_equal(got_lo.numpy(), np.asarray(want_lo))
+    # the int64 form the unstable 64-bit partial sorts rotate with
+    rot = bits.rotr64(torch.from_numpy(raw.view(np.int64)), s).numpy().view(np.uint64)
+    want = (np.asarray(want_hi).astype(np.uint64) << np.uint64(32)) | np.asarray(want_lo)
+    np.testing.assert_array_equal(rot, want)
+
+
+@pytest.mark.parametrize("dtype", ["uint64", "int64", "float64"])
+def test_encode_decode_ordered64_match_jax(dtype):
+    """The torch codec's sortable int64, as the bits of the encoded word
+    (``^ 1 << 63``), is the JAX package's ``encode_ordered_np64``; the
+    port's numpy codec too; an int64 sort of it is numpy's totalOrder sort;
+    the (hi, lo) words and the digits of the encoded word agree."""
+    x = _words64().view(dtype)
+    want = jbits.encode_ordered_np64(x)
+    s = bits.encode_ordered64(torch.from_numpy(x))
+    assert s.dtype == torch.int64
+    np.testing.assert_array_equal(s.numpy().view(np.uint64) ^ np.uint64(1 << 63), want)
+    np.testing.assert_array_equal(bits.encode_ordered_np64(x), want)
+    dec = bits.decode_ordered64(s, getattr(torch, dtype)).numpy()
+    assert dec.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(dec.view(np.uint64), x.view(np.uint64))
+    np.testing.assert_array_equal(bits.decode_ordered_np64(want, dtype).view(np.uint64),
+                                  jbits.decode_ordered_np64(want, dtype).view(np.uint64))
+    np.testing.assert_array_equal(np.sort(s.numpy()).view(np.uint64) ^ np.uint64(1 << 63),
+                                  np.sort(want))
+    hi, lo = bits.split_words(s)
+    np.testing.assert_array_equal(hi.numpy(), (want >> np.uint64(32)).astype(np.uint32))
+    np.testing.assert_array_equal(lo.numpy(), (want & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    assert torch.equal(bits.join_words(hi, lo), s)
+    for offset, width in ((0, 32), (28, 8), (60, 4), (5, 7)):
+        np.testing.assert_array_equal(
+            bits.digits64(s, offset, width).numpy(),
+            ((want >> np.uint64(offset)) & np.uint64((1 << width) - 1)).astype(np.uint32))
+    with pytest.raises(TypeError, match="unsupported key dtype"):
+        bits.encode_ordered64(torch.zeros(3, dtype=torch.int32))

@@ -1,6 +1,7 @@
 """Slices one and two of the PyTorch port as a whole vs the JAX package:
 sort_full (uint32, int32, float32), the stable and unstable sort_partial,
-sort_partial_counts, sort_key_value_by_digits, compute_boundaries,
+sort_partial_counts, sort_key_value_by_digits (the key-value, 64-bit and
+table paths in test_torch_kv/u64/table.py), compute_boundaries,
 digit_counts, counts_to_boundaries, routing, the pipelines and the CLI;
 plus the rules that host input never sorts on the CPU and that the port
 imports neither jax nor the JAX package.  Same inputs to both sides;
@@ -136,13 +137,21 @@ def test_sort_key_value_by_digits_matches_jax(dtype, n, strategy):
 
 
 def test_wide_kv_payloads_wait_for_roadmap_a4():
-    keys = torch.from_numpy(Pcg32().fill(100))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        port.sort_key_value_by_digits(keys, torch.zeros(100, 2, dtype=torch.int32), 0, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        port.sort_key_value_by_digits(keys, torch.zeros(100, dtype=torch.int64), 0, 4)
+    """Payloads other than one 4-byte column, which ROADMAP A2 brought: (n, 2)
+    int32 lanes and an int64 column sort like the JAX package's (the int64
+    one against numpy, as JAX holds no int64 without 64-bit mode); a payload
+    whose leading axis is not n raises.  Every form: test_torch_kv.py."""
+    keys = Pcg32().fill(100)
+    lanes = np.arange(200, dtype=np.int32).reshape(100, 2)
+    want_k, want_v = jrs.sort_key_value_by_digits(jnp.asarray(keys), jnp.asarray(lanes), 0, 4)
+    got_k, got_v = port.sort_key_value_by_digits(torch.from_numpy(keys), torch.from_numpy(lanes), 0, 4)
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    wide = np.arange(100, dtype=np.int64) << 40
+    _, got_v = port.sort_key_value_by_digits(torch.from_numpy(keys), torch.from_numpy(wide), 0, 4)
+    np.testing.assert_array_equal(got_v.numpy(), wide[np.argsort(keys & 15, kind="stable")])
     with pytest.raises(ValueError, match="leading axis"):
-        port.sort_key_value_by_digits(keys, torch.zeros(99, dtype=torch.int32), 0, 4)
+        port.sort_key_value_by_digits(torch.from_numpy(keys), torch.zeros(99, dtype=torch.int32), 0, 4)
 
 
 def test_digit_counts_and_counts_to_boundaries_match_jax():
@@ -266,6 +275,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "gpu_radix_sort_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    checked = {path.relative_to(REPO).as_posix() for path in files}
+    assert {f"gpu_radix_sort_tpu_torch/{m}" for m in (
+        "ops/table.py", "ops/radix_sort.py", "ops/bits.py", "ops/binning.py",
+        "utils/keygen.py")} <= checked
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
