@@ -57,7 +57,19 @@
 10. times the mesh sorts, one tile pass and one merge level of the 256Mi
    keys, one B6 launch (destination aligned and shifted by one key, beside
    copy_ of the same bytes) and one B7 round, and profiles the one-rank rdma
-   sort and the four-rank rdma_overlap sort by kernel.
+   sort and the four-rank rdma_overlap sort by kernel;
+11. drives the storage plane at the reference's distributed configuration
+   (storage_path): sort_distrib_from_raw of 512Mi PCG32 keys at width 8
+   over 2 workers, exact against one np.sort, with launch counts: sort_full
+   of the 2^29 keys; the device backend's fused loop (times of 3 calls,
+   SortStats phases, peak memory, a profile), its rounds with checkpoints
+   per worker (B5) and fused, a worker raising in round 3 at 64Mi and
+   resume_sort_distrib; the file backend with a WorkerPool of 2 processes
+   on the card; the mem backend at 128Mi; shards of 2^14 keys (B4) and the
+   fused loop at 2^14 keys (B3); kv rows with 64-byte payloads at 32Mi
+   (numpy's stable order); uint64 keys at 256Mi (the fused 64-bit loop)
+   and at 64Mi with checkpoints; and times the copies of 2 GiB to and from
+   the card.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -73,6 +85,10 @@ offset of source and receivers past a 16-byte boundary), sorts the same 256Mi
 keys exactly through rdma, rdma_overlap and alltoall with launch counts,
 and times each sort, a B6 round and a B7 round (overlapped and serial)
 across the cards against the same work on as many ranks of cuda:0.
+
+    python3 chip_smoke.py --storage
+
+builds the kernels and runs only the storage path (11. above) on one card.
 """
 
 from __future__ import annotations
@@ -91,6 +107,15 @@ N_PART = 1 << 28  # 256Mi keys, 1 GiB: the stable partial sorts' size
 PART_WIDTHS = (4, 8, 16)
 N_MESH = N_PART  # the mesh LSD sort's size: the same 256Mi keys
 MESH_RANKS = 4  # ranks on one card for the multi-rank runs
+# The storage plane at the reference's distributed configuration: 512Mi
+# keys (2 GiB), width 8, 2 workers (BASELINE.md:10, 28; distrib.go:107)
+N_STORAGE = 1 << 29
+STORAGE_WIDTH = 8
+STORAGE_WORKERS = 2
+N_STORAGE_CRASH = 1 << 26  # crash and resume; 64-bit keys with checkpoints
+N_STORAGE_MEM = 1 << 27  # the mem backend
+N_STORAGE_KV = 1 << 25  # key-value rows with 64-byte payloads
+N_STORAGE_U64 = 1 << 28  # 64-bit keys, the fused 64-bit loop
 
 # Published peaks of one H100 SXM: HBM bytes/s, and 32-bit operations/s
 # outside the tensor cores (the float32 row of the data sheet).
@@ -254,6 +279,304 @@ def device_profile(fn, reps: int = 3):
     return by_name, 1.0 - busy / window if window else 0.0
 
 
+def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) -> dict:
+    """The storage plane at the reference's distributed configuration: 512Mi
+    PCG32 keys (2 GiB), digit width 8, 2 workers, 4 rounds (BASELINE.md:10,
+    28; distrib.go:107), through sort_distrib_from_raw on every backend.
+    Each run has its launch counts set to 0 just before and read just
+    after, and is exact against one numpy oracle; times are host-clock ends
+    of whole calls (each ends in its copy to the host) with their SortStats
+    phases, beside torch.sort of the same keys.  ``head``: the first keys
+    of the PCG32 stream, already made, and ``stream`` the Pcg32 that made
+    them, which goes on from there.  Returns the results for the JSON
+    line."""
+    import shutil
+
+    from gpu_radix_sort_tpu_torch import data as pdata
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.parallel import serverless as sv
+    from gpu_radix_sort_tpu_torch.parallel import storage_sort as ss
+    from gpu_radix_sort_tpu_torch.utils import keygen, timers
+    from gpu_radix_sort_tpu_torch.utils.timers import SortStats
+
+    counters = {"block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
+                "single_block_sort": sb}
+    none = dict.fromkeys(counters, 0)
+    res = {"launches": {}, "peak_mib": {}, "ms": {}, "phases_s": {}, "torch_ms": {},
+           "card": card}
+    width, nworker, nstep = STORAGE_WIDTH, STORAGE_WORKERS, 32 // STORAGE_WIDTH
+
+    def run(name: str, fn, expect: dict):
+        """fn() with the counts set to 0 just before and read just after;
+        fails unless they are ``expect`` (kernels not named: 0)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res["ms"][name] = (time.perf_counter() - t0) * 1e3
+        got = {k: mod.launches for k, mod in counters.items()}
+        want = {**none, **expect}
+        if got != want:
+            fail(f"{name}: launches {got}, expected {want}")
+        res["launches"][name] = {k: v for k, v in got.items() if v}
+        res["peak_mib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        return out
+
+    def exact(got: np.ndarray, want: np.ndarray, what: str) -> None:
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(
+                got.view(np.uint8), want.view(np.uint8)):
+            fail(f"{what} differs from the numpy oracle")
+
+    def report(name: str, stats: SortStats, n_keys: int, n_calls: int = 1,
+               key_type: str = "u32") -> None:
+        res["phases_s"][name] = {k: v["total_s"] / n_calls for k, v in stats.report().items()
+                                 if isinstance(v, dict)}
+        split = ", ".join(f"{k} {v:.4f}" for k, v in res["phases_s"][name].items())
+        res["torch_ms"][name] = yardstick[(key_type, n_keys)]
+        log(f"time [{card}]: {name}: {res['ms'][name]:.1f} ms by host clock, launches "
+            f"{res['launches'].get(name)}, peak device memory "
+            f"{res['peak_mib'].get(name, float('nan')):.0f} MiB above its inputs; "
+            f"torch.sort of the same {n_keys} keys on the card {res['torch_ms'][name]:.3f} "
+            f"ms; phases a call (s): {split}")
+
+    t_path = time.perf_counter()
+    n = N_STORAGE
+    if head is None:
+        head, stream = np.empty(0, np.uint32), keygen.Pcg32()
+    keys_np = np.concatenate([head, stream.fill(n - head.size)])
+    del head
+    t0 = time.perf_counter()
+    want = np.sort(keys_np)
+    log(f"storage path: {n} PCG32 keys made; np.sort oracle in "
+        f"{time.perf_counter() - t0:.1f} s")
+    h2d = timers.time_cuda(lambda: torch.from_numpy(keys_np).to(dev), warmup=1, iters=3)
+    keys = torch.from_numpy(keys_np).to(dev)
+    d2h = timers.time_cuda(lambda: keys.cpu(), warmup=1, iters=3)
+    res["h2d_ms"], res["d2h_ms"] = h2d, d2h
+    log(f"time [{card}]: {n * 4} bytes host to device {h2d:.3f} ms, device to host "
+        f"{d2h:.3f} ms (pageable host memory; CUDA-event median of 3)")
+
+    # -- sort_full of 2^29 keys, the fused loops' global sort ----------------
+    levels = (n // bs.TILE - 1).bit_length()
+    out = run(f"sort_full {n}", lambda: rs.sort_full(keys),
+              {"block_sort": 1, "merge_level": levels})
+    exact(out.cpu().numpy(), want, f"sort_full of {n} keys")
+    del out
+    res["sort_full_ms"] = timers.time_cuda(lambda: rs.sort_full(keys), iters=5)
+    res["torch_sort_ms"] = timers.time_cuda(lambda: rs.sort_full(keys, strategy="torch"),
+                                            iters=5)
+    log(f"time [{card}]: sort_full of {n} keys {res['sort_full_ms']:.3f} ms, torch.sort "
+        f"{res['torch_sort_ms']:.3f} ms (CUDA-event median of 5); exact")
+    # torch.sort of each phase's keys on the card, the yardstick of its time
+    yardstick = {("u32", m): timers.time_cuda(
+        lambda m=m: rs.sort_full(keys[:m], strategy="torch"), iters=5)
+        for m in (N_STORAGE_CRASH, N_STORAGE_MEM, N_STORAGE_KV)}
+    yardstick[("u32", n)] = res["torch_sort_ms"]
+
+    # -- device backend, stock worker, no checkpoint: the fused loop ---------
+    row_levels = (n // nworker // bs.TILE - 1).bit_length()
+    fused_expect = {"block_sort": nstep - 1 + nworker,
+                    "merge_level": (nstep - 1) * levels + nworker * row_levels}
+    f = pdata.DeviceArrayFactory(dev)
+    name = "device fused"
+    stats = SortStats()
+    got = run(name, lambda: ss.sort_distrib_from_raw(keys, "sd", f, width=width,
+                                                      nworker=nworker, stats=stats),
+              fused_expect)
+    exact(got, want, f"storage {name}")
+    del got
+    stats = SortStats()
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ss.sort_distrib_from_raw(keys, "sd", f, width=width, nworker=nworker, stats=stats)
+        samples.append((time.perf_counter() - t0) * 1e3)
+    res["ms"][name] = float(np.median(samples))
+    report(name, stats, n, 3)
+    log_profile(card, f"storage {name} of {n} keys (one call: its rounds and its copy "
+                f"to the host)", lambda: ss.sort_distrib_from_raw(
+                    keys, "sd", f, width=width, nworker=nworker), top=8)
+
+    # -- device backend with checkpoints: the per-worker and fused rounds ----
+    ckpt_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_storage_smoke")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    manifests = []
+    write_checkpoint = ss._write_checkpoint
+
+    def counting_checkpoint(*args, **kwargs):
+        write_checkpoint(*args, **kwargs)
+        manifests.append(ss.load_checkpoint(args[0], args[1]))
+
+    ss._write_checkpoint = counting_checkpoint
+    try:
+        name = "device per-worker checkpointed"
+        stats = SortStats()
+        pinned = ss.make_local_worker("auto")
+        got = run(name, lambda: ss.sort_distrib_from_raw(
+            keys, "sc", f, pinned, width=width, nworker=nworker, stats=stats,
+            checkpoint_dir=os.path.join(ckpt_root, "pw")),
+            {"binning": nstep * nworker * -(-width // bn.PASS_WIDTH)})
+        exact(got, want, f"storage {name}")
+        if [m["completed_step"] for m in manifests] != list(range(nstep)):
+            fail(f"{name}: manifests of steps {[m['completed_step'] for m in manifests]}")
+        report(name, stats, n)
+        manifests.clear()
+        name = "device fused checkpointed"
+        stats = SortStats()
+        got = run(name, lambda: ss.sort_distrib_from_raw(
+            keys, "sk", f, width=width, nworker=nworker, stats=stats,
+            checkpoint_dir=os.path.join(ckpt_root, "fu")),
+            {"block_sort": nstep - 1 + nstep * nworker,
+             "merge_level": (nstep - 1) * levels + nstep * nworker * row_levels})
+        exact(got, want, f"storage {name}")
+        if [m["completed_step"] for m in manifests] != list(range(nstep)):
+            fail(f"{name}: manifests of steps {[m['completed_step'] for m in manifests]}")
+        report(name, stats, n)
+        del got
+    finally:
+        ss._write_checkpoint = write_checkpoint
+
+    # -- crash in round 3 at 64Mi, then resume_sort_distrib ----------------
+    n_crash = N_STORAGE_CRASH
+    want_crash = np.sort(keys_np[:n_crash])
+
+    def crashing(in_refs, offset, w, out_name, factory):
+        if offset == 2 * width:
+            raise RuntimeError("worker down in round 3")
+        return pinned(in_refs, offset, w, out_name, factory)
+
+    ckpt = os.path.join(ckpt_root, "crash")
+    try:
+        ss.sort_distrib_from_raw(keys[:n_crash], "sx", f, crashing, width=width,
+                                 nworker=nworker, checkpoint_dir=ckpt)
+        fail("the crashing worker did not crash")
+    except RuntimeError as e:
+        if "round 3" not in str(e):
+            raise
+    if ss.load_checkpoint(ckpt, "sx")["completed_step"] != 1:
+        fail("crash: the last manifest is not round 2's")
+    outs = ss.resume_sort_distrib("sx", f, ss.local_distrib_worker, ckpt, nworker=nworker)
+    exact(ss._linearize(outs, SortStats()).view(np.uint32), want_crash,
+          f"resume after a crash in round 3 at {n_crash}")
+    del want_crash
+    log(f"storage path: device backend with checkpoints, a manifest a round; a worker "
+        f"raising in round 3 at {n_crash} keys, then resume_sort_distrib: exact")
+
+    # -- file backend, a WorkerPool of 2 processes on the card --------------
+    mount = os.path.join(ckpt_root, "mount")
+    with sv.WorkerPool(mount, size=nworker) as pool:
+        warm = keys_np[: 1 << 20]
+        got = ss.sort_distrib_from_raw(warm, "sw", pdata.FileArrayFactory(mount),
+                                       pool.worker(), width=width, nworker=nworker)
+        exact(got, np.sort(warm), "file pool warm-up sort")
+        name = "file pool"
+        stats = SortStats()
+        got = run(name, lambda: ss.sort_distrib_from_raw(
+            keys_np, "sf", pdata.FileArrayFactory(mount), pool.worker(), width=width,
+            nworker=nworker, stats=stats), {})  # the launches are the children's
+        exact(got, want, f"storage {name}")
+        del got
+    report(name, stats, n)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # -- mem backend, local worker, 128Mi ----------------------------------
+    n_mem = N_STORAGE_MEM
+    want_mem = np.sort(keys_np[:n_mem])
+    name = "mem local"
+    stats = SortStats()
+    got = run(name, lambda: ss.sort_distrib_from_raw(
+        keys_np[:n_mem], "sm", pdata.MemArrayFactory(), width=width, nworker=nworker,
+        stats=stats), {"binning": nstep * nworker * -(-width // bn.PASS_WIDTH)})
+    exact(got, want_mem, f"storage {name} at {n_mem}")
+    report(name, stats, n_mem)
+    del got, want_mem
+
+    # -- shards of <= 2^14 keys: B4 in the workers, B3 in the fused loop ----
+    n_small = nworker * ds.MAX_N_KV
+    got = run("mem local small", lambda: ss.sort_distrib_from_raw(
+        keys_np[:n_small], "ss", pdata.MemArrayFactory(), width=width, nworker=nworker),
+        {"digit_sort": nstep * nworker})
+    exact(got, np.sort(keys_np[:n_small]), f"storage mem local at {n_small}")
+    n_tiny = sb.MAX_N
+    got = run("device fused small", lambda: ss.sort_distrib_from_raw(
+        keys[:n_tiny], "st", f, width=width, nworker=nworker),
+        {"single_block_sort": nstep - 1 + nworker})
+    exact(got, np.sort(keys_np[:n_tiny]), f"storage device fused at {n_tiny}")
+    log(f"storage path: shards of {ds.MAX_N_KV} keys through digit_sort, and the fused "
+        f"loop at {n_tiny} keys through single_block_sort: exact")
+    del keys, want
+
+    # -- kv rows: 64-byte payloads at 32Mi rows, mem backend -----------------
+    n_kv = N_STORAGE_KV
+    kv_keys = keys_np[:n_kv]
+    payload = keygen.generate_payloads(n_kv, payload_bytes=64)
+    name = "mem kv p64B"
+    stats = SortStats()
+    sk, sp = run(name, lambda: ss.sort_distrib_from_raw_kv(
+        kv_keys, payload, "kv", pdata.MemArrayFactory(), width=width, nworker=nworker,
+        stats=stats), {})  # the digit order is a torch.sort, no kernel
+    order = stable_order_u32(kv_keys)
+    exact(sk, kv_keys[order], f"storage {name} keys")
+    exact(sp, take_rows(payload, order), f"storage {name} payload")
+    report(name, stats, n_kv)
+    del sk, sp, order, payload, kv_keys, keys_np
+
+    # -- 64-bit keys: 256Mi uint64 on the device backend (the fused loop) ----
+    n64 = N_STORAGE_U64
+    u64_np = np.random.default_rng(64).integers(0, 1 << 64, n64, dtype=np.uint64)
+    want64 = np.sort(u64_np)
+    name = "device u64 fused"
+    stats = SortStats()
+    got = run(name, lambda: ss.sort_distrib_from_raw_u64(
+        u64_np, "su", f, width=width, nworker=nworker, stats=stats), {})
+    exact(got, want64, f"storage {name}")
+    u64 = torch.from_numpy(u64_np).to(dev).view(torch.int64)
+    for m in (n64, N_STORAGE_CRASH):  # the int64 sort of the sign-flipped words
+        yardstick[("u64", m)] = timers.time_cuda(
+            lambda m=m: torch.sort(u64[:m] ^ (-1 << 63)), iters=5)
+    res["u64_torch_sort_ms"] = yardstick[("u64", n64)]
+    report(name, stats, n64, key_type="u64")
+    del u64, got
+    n64c = N_STORAGE_CRASH
+    name = "device u64 checkpointed"
+    stats = SortStats()
+    got = run(name, lambda: ss.sort_distrib_from_raw_u64(
+        u64_np[:n64c], "sv", f, width=width, nworker=nworker, stats=stats,
+        checkpoint_dir=os.path.join(ckpt_root, "u64")), {})
+    exact(got, np.sort(u64_np[:n64c]), f"storage {name} at {n64c}")
+    report(name, stats, n64c, key_type="u64")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    del got, want64, u64_np
+    torch.cuda.empty_cache()
+    log(f"storage path: every phase exact ({time.perf_counter() - t_path:.1f} s)")
+    res.update(n=N_STORAGE, width=width, nworker=nworker, n_crash=N_STORAGE_CRASH,
+               n_mem=N_STORAGE_MEM, n_kv=N_STORAGE_KV, n_u64=N_STORAGE_U64)
+    return res
+
+
+def start_zipf_keys(n: int):
+    """(pool, future) of generate_zipf_keys(n, alpha=1.1) in a process of
+    its own, started now: numpy's Zipf draws take about a minute at 256Mi
+    and hold the interpreter lock, so they run beside the phases before the
+    table path instead of in its way.  Shut the pool down after."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from gpu_radix_sort_tpu_torch.utils import keygen
+
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(keygen.generate_zipf_keys, n, alpha=1.1)
+
+
 def total_order_np(a: np.ndarray) -> np.ndarray:
     """numpy IEEE-754 totalOrder bits of float32 keys (independent of the
     port's torch codec)."""
@@ -276,6 +599,14 @@ def stable_order_u32(k: np.ndarray) -> np.ndarray:
     where the timsort of 2^27 keys takes tens of them."""
     idx = np.arange(k.size, dtype=np.uint64)
     return (np.sort((k.astype(np.uint64) << np.uint64(32)) | idx) & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
+def take_rows(a: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """a[order] for (n, B) uint8 rows, indexing each row as one fixed-size
+    record: numpy's 2-D row indexing copies element by element, 2-4x
+    slower on these sizes."""
+    records = np.ascontiguousarray(a).view(np.dtype((np.void, a.shape[1]))).reshape(-1)
+    return records[order].view(a.dtype).reshape(-1, a.shape[1])
 
 
 def hash_np(k: np.ndarray) -> np.ndarray:
@@ -717,14 +1048,17 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     return res
 
 
-def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> dict:
+def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
+                  zipf_keys=None) -> dict:
     """The key-value, 64-bit and table paths at the JAX harness's sizes
     (gpu_radix_sort_tpu/bench/harness.py:125-207): each exact against a
     numpy oracle, with the launch counts set to 0 just before and read just
     after, its peak device memory, its time and its "torch" route's (median
     of 10 by CUDA events), and profiles of two of them.  ``part`` holds the
     256Mi PCG32 keys of the partial path (on the card), ``part_np`` the same
-    on the host.  Returns the results for the JSON line."""
+    on the host; ``zipf_keys``, a future of the Zipf keys made beside the
+    run (:func:`start_zipf_keys`), or None to make them here.  Returns the
+    results for the JSON line."""
     import gpu_radix_sort_tpu_torch as port
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
@@ -796,7 +1130,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> di
     kv_expect = {"binning": 2 * passes32}  # keys and the row index a pass
     sk, sv = run("sort_key_value p8B", lambda: port.sort_key_value(keys, payload8), kv_expect)
     same(sk, keys_np[order], "sort_key_value p8B keys")
-    same(sv, payload8_np[order], "sort_key_value p8B payload")
+    same(sv, take_rows(payload8_np, order), "sort_key_value p8B payload")
     del sk, sv
     timed("sort_key_value p8B", lambda: port.sort_key_value(keys, payload8),
           lambda: port.sort_key_value(keys, payload8, strategy="torch"))
@@ -804,7 +1138,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> di
     payload64 = torch.from_numpy(payload64_np).to(dev)
     sk, sv = run("sort_key_value p64B", lambda: port.sort_key_value(keys, payload64), kv_expect)
     same(sk, keys_np[order], "sort_key_value p64B keys")
-    same(sv, payload64_np[order], "sort_key_value p64B payload")
+    same(sv, take_rows(payload64_np, order), "sort_key_value p64B payload")
     del sk, sv, payload64_np
     timed("sort_key_value p64B", lambda: port.sort_key_value(keys, payload64),
           lambda: port.sort_key_value(keys, payload64, strategy="torch"))
@@ -817,7 +1151,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> di
     sk, sv = run("sort_key_value f32 keys p8B", lambda: port.sort_key_value(f32, payload8),
                  kv_expect)
     same(sk, keys_np.view(np.float32)[order_f], "sort_key_value f32 keys")
-    same(sv, payload8_np[order_f], "sort_key_value f32 payload")
+    same(sv, take_rows(payload8_np, order_f), "sort_key_value f32 payload")
     del sk, sv, order_f, order
     timed("sort_key_value f32 keys p8B", lambda: port.sort_key_value(f32, payload8),
           lambda: port.sort_key_value(f32, payload8, strategy="torch"))
@@ -915,7 +1249,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> di
     sk, sv = run(name, lambda: port.sort_key_value_u64(keys64, payload8),
                  {"binning": 2 * passes32 * 3})  # two words, a row index
     same(sk, keys64_np[order], f"{name} keys")
-    same(sv, payload8_np[order], f"{name} payload")
+    same(sv, take_rows(payload8_np, order), f"{name} payload")
     del sk, sv, order
 
     def kv64_torch():
@@ -981,7 +1315,8 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray) -> di
     log(f"table path: hash_partition_ids and partition_by_ids of {n} PCG32 keys "
         f"into {nparts} parts, filter_range [2^30, 3 * 2^30), exact")
 
-    zipf_np = keygen.generate_zipf_keys(n, alpha=1.1)
+    zipf_np = (zipf_keys.result() if zipf_keys is not None
+               else keygen.generate_zipf_keys(n, alpha=1.1))
     zipf = torch.from_numpy(zipf_np).to(dev)
     order = stable_order_u32(zipf_np)
     zs = zipf_np[order]
@@ -1069,6 +1404,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = card_line()
     log(card)
+    zipf_pool, zipf_keys = start_zipf_keys(N_PART)
 
     t0 = time.perf_counter()
     ptxas = start_ptxas_report()
@@ -1373,9 +1709,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the stable partial-sort path ------------------------------------------
-    keygen.reset_global_stream()
+    stream = keygen.Pcg32()  # the global stream from its start; the storage path goes on
     t0 = time.perf_counter()
-    part_np = keygen.generate_keys(N_PART)
+    part_np = stream.fill(N_PART)
     part = on_card(part_np)
     torch.cuda.synchronize()
     log(f"partial path: {N_PART} PCG32 keys made and moved to the card in "
@@ -1516,9 +1852,15 @@ def main() -> int:
 
     del vals
     torch.cuda.empty_cache()
-    kv = kv_table_path(dev, card, part, part_np)
+    kv = kv_table_path(dev, card, part, part_np, zipf_keys)
+    zipf_pool.shutdown()
     mesh = mesh_path(dev, rng, card, part, part_np, rank_info["segment_copy_kernel"],
                      rank_info["group_sort_send_kernel"])
+    del part
+    torch.cuda.empty_cache()
+    storage = storage_path(dev, card, part_np, stream)
+    del part_np
+    st_launches = storage["launches"]
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -1534,6 +1876,8 @@ def main() -> int:
                launches_group_aggregate=kv["launches"]["group_aggregate count zipf"]["block_sort"],
                pass_256Mi_ms=mesh["tile_pass_256Mi_ms"],
                launches_mesh_one_rank=mesh["launches_one_rank"]["block_sort"],
+               launches_storage={k: v["block_sort"] for k, v in st_launches.items()
+                                 if "block_sort" in v},
                **rank_info["block_sort_kernel"]),
         kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
                single_launches, err_single, ms_single, ms_single_plain, single_bound,
@@ -1541,6 +1885,8 @@ def main() -> int:
                counting_route_ms=ms_single_count,
                single_call_ms=ms_single_call, single_call_library_ms=ms_single_lib_call,
                counting_route_single_call_ms=ms_single_count_call,
+               launches_storage={k: v["single_block_sort"] for k, v in st_launches.items()
+                                 if "single_block_sort" in v},
                **rank_info["single_block_sort_kernel<14>"]),
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
@@ -1548,24 +1894,30 @@ def main() -> int:
                launches_group_aggregate=kv["launches"]["group_aggregate count zipf"]["merge_level"],
                level_256Mi_ms=mesh["merge_level_256Mi_ms"],
                launches_mesh_one_rank=mesh["launches_one_rank"]["merge_level"],
+               launches_storage={k: v["merge_level"] for k, v in st_launches.items()
+                                 if "merge_level" in v},
                **rank_info["merge_level_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
                timed="CUDA graph of 20 calls", w17_ms=ms_ds17, w17_library_ms=ms_ds17_lib,
                single_call_ms=ms_ds_call, single_call_library_ms=ms_ds_lib_call,
+               launches_storage={k: v["digit_sort"] for k, v in st_launches.items()
+                                 if "digit_sort" in v},
                **rank_info["digit_sort_kernel"]),
         kernel("binning", "binning.cu", "gpu_radix_sort_tpu/ops/pallas_radix.py:205",
                sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
                bin_bound, ms_bin_lib, launches_by_width=part_launches,
                kv_launches=kv_launches, stage_a_ms=ms_stage_a,
                launches_kv_u64_table={k: v["binning"] for k, v in kv["launches"].items()
-                                      if "binning" in v}),
+                                      if "binning" in v},
+               launches_storage={k: v["binning"] for k, v in st_launches.items()
+                                 if "binning" in v}),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
-        "card": card}))
+        "storage": storage, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1745,5 +2097,23 @@ def all_cards_path(devs: list, card: str) -> dict:
     return res
 
 
+def storage_main() -> int:
+    """``--storage``: the kernels' build and the storage path alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    build.load()
+    res = storage_path(torch.device("cuda", 0), card)
+    print(json.dumps({"storage": res}))
+    log(f"chip_smoke --storage: {time.perf_counter() - t_start:.1f} s in all")
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(all_cards_main() if sys.argv[1:] == ["--all-cards"] else main())
+    mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main}
+    sys.exit(mains.get(tuple(sys.argv[1:]), main)())

@@ -6,8 +6,11 @@ through kernels written by hand for Hopper (``csrc/``, built with nvcc at
 first use); on a CPU tensor through those kernels' plain PyTorch versions.
 The mesh sorts run over a list of devices held by one process
 (``parallel/``); the table operators (hash partition, filter, group
-aggregate) are in ``ops/table.py``.  This package imports neither jax nor
-the JAX package.
+aggregate) are in ``ops/table.py``; the storage plane -- DistribArrays
+(``data/``) and the storage round loop with in-process and subprocess
+workers, checkpoint and resume (``parallel/storage_sort.py``,
+``parallel/serverless.py``) -- runs the reference's distributed sort.  This
+package imports neither jax nor the JAX package.
 """
 
 from .models.pipelines import (
@@ -31,7 +34,20 @@ from .ops.radix_sort import (
     sort_partial_counts_u64,
     sort_partial_u64,
 )
-from .parallel import build_distributed_sort, key_mesh, sort_distributed
+from .parallel import (
+    WorkerPool,
+    build_distributed_sort,
+    key_mesh,
+    make_local_worker,
+    resume_sort_distrib,
+    sort_distrib_from_raw,
+    sort_distrib_from_raw_kv,
+    sort_distrib_from_raw_kv64,
+    sort_distrib_from_raw_u64,
+    sort_distributed,
+)
+from .utils.config import SortConfig
+from .utils.timers import SortStats
 from .utils.keygen import (
     Pcg32,
     generate_keys,
@@ -67,6 +83,15 @@ __all__ = [
     "sort_distributed",
     "build_distributed_sort",
     "key_mesh",
+    "sort_distrib_from_raw",
+    "sort_distrib_from_raw_kv",
+    "sort_distrib_from_raw_u64",
+    "sort_distrib_from_raw_kv64",
+    "resume_sort_distrib",
+    "make_local_worker",
+    "WorkerPool",
+    "SortConfig",
+    "SortStats",
     "FullSortPipeline",
     "PartialSortPipeline",
     "DistributedSortPipeline",

@@ -12,16 +12,22 @@ built.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.  A failed
 ``nvcc`` raises with its stderr.  Nothing falls back.
+
+:func:`build` and :func:`load` are safe to call from several threads at
+once (the storage round loop runs its workers as threads): one lock makes
+the first caller build and the others wait for its library, and the
+temporary objects carry the process and the thread in their names, so two
+processes that build at once write different files.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -115,41 +121,50 @@ def _start(cmd: list[str]) -> tuple[list[str], subprocess.Popen]:
     )
 
 
+_LOCK = threading.RLock()  # one build at a time in a process
+_LIB: ctypes.CDLL | None = None
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists:
     one ``nvcc -c`` a source, in parallel, then one link."""
-    lib = library_path()
-    if lib.exists():
+    with _LOCK:
+        lib = library_path()
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tag = f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
+        objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        try:
+            _run([
+                _start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+                for src, obj in zip(_sources(), objects)
+            ])
+            tmp = BUILD_DIR / f"{tag}.so.tmp"
+            _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *map(str, objects)])])
+            os.replace(tmp, lib)
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{lib.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
-    try:
-        _run([
-            _start([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
-            for src, obj in zip(_sources(), objects)
-        ])
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                      *map(str, objects)])])
-        os.replace(tmp, lib)
-    finally:
-        for obj in objects:
-            obj.unlink(missing_ok=True)
-    return lib
 
 
-@functools.cache
 def load() -> ctypes.CDLL:
     """The kernel library, built on the first call in a process."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.grs_error_string.argtypes = (ctypes.c_int,)
-    lib.grs_error_string.restype = ctypes.c_char_p
-    return lib
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.grs_error_string.argtypes = (ctypes.c_int,)
+            lib.grs_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
 
 
 def check(status: int, what: str) -> None:

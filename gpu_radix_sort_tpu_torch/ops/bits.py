@@ -100,12 +100,14 @@ def sortable_digits(
 
 
 def rotr32(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Static cyclic right-rotation of uint32 bit patterns (s mod 32)."""
+    """Static cyclic right-rotation of uint32 bit patterns (s mod 32), on
+    the int32 view: the arithmetic shift's sign bits lie above the mask,
+    and the left shift wraps modulo 2^32."""
     s %= 32
     if s == 0:
         return x
-    y = to_int64(x)
-    return from_int64(((y >> s) | (y << (32 - s))) & 0xFFFFFFFF)
+    y = x.view(torch.int32)
+    return ((y >> s) & ((1 << (32 - s)) - 1) | (y << (32 - s))).view(torch.uint32)
 
 
 def encode_ordered(x: torch.Tensor) -> torch.Tensor:

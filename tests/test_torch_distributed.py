@@ -53,23 +53,45 @@ def _jax_mesh():
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_sorted(n: int, width: int) -> bytes:
+def _jax_sorted(n: int, width: int, ranks: int = P) -> bytes:
     keys = Pcg32(state=n).fill(n)
-    out = jdist.sort_distributed(keys, mesh=_jax_mesh(), width=width, exchange="gather",
+    mesh = jax_key_mesh(jax.devices("cpu")[:ranks])
+    out = jdist.sort_distributed(keys, mesh=mesh, width=width, exchange="gather",
                                  strategy="xla")
     return np.asarray(out).tobytes()
 
 
-@pytest.mark.parametrize("n", [1, 7, 1111, 4099, 1 << 13, 1 << 15])
-@pytest.mark.parametrize("exchange,width", [
-    (e, w) for e in EXCHANGES for w in (8, 16) if (e, w) != ("rdma_overlap", 16)
-])
-def test_sort_distributed_matches_jax(exchange, width, n):
+# (exchange, width, n, ranks): widths 8 and 16 at every n on 8 ranks; the
+# narrow widths (more of the fused loops' rotations, 8 to 32 rounds) and 3
+# ranks at a few n, so that the JAX references stay few.  The exchanges with
+# fixed per-peer slots (alltoall, overflow) overflow by design once a digit
+# has fewer buckets than there are ranks, so they take width 4 alone.
+MESH_CASES = [
+    (e, w, n, P)
+    for e in EXCHANGES for w in (8, 16) if (e, w) != ("rdma_overlap", 16)
+    for n in (1, 7, 1111, 4099, 1 << 13, 1 << 15)
+] + [
+    (e, w, 1111, P) for w in (1, 2, 4) for e in EXCHANGES
+    if w == 4 or e not in ("alltoall", "overflow")
+] + [
+    (e, w, n, 3) for e in EXCHANGES for w, n in ((8, 7), (8, 4099), (4, 1111))
+]
+
+
+def _mesh_case_id(case) -> str:
+    exchange, width, n, ranks = case
+    return f"{exchange}-{width}-{n}" + ("" if ranks == P else f"-P{ranks}")
+
+
+@pytest.mark.parametrize("exchange,width,n,ranks", MESH_CASES,
+                         ids=[_mesh_case_id(c) for c in MESH_CASES])
+def test_sort_distributed_matches_jax(exchange, width, n, ranks):
     keys = Pcg32(state=n).fill(n)
-    got = port.sort_distributed(torch.from_numpy(keys), mesh=CPU_MESH, width=width,
+    mesh = CPU_MESH if ranks == P else pm.key_mesh([torch.device("cpu")] * ranks)
+    got = port.sort_distributed(torch.from_numpy(keys), mesh=mesh, width=width,
                                 exchange=exchange)
     assert got.dtype == torch.uint32 and got.shape == (n,)
-    assert got.numpy().tobytes() == _jax_sorted(n, width)
+    assert got.numpy().tobytes() == _jax_sorted(n, width, ranks)
     np.testing.assert_array_equal(got.numpy(), np.sort(keys))
 
 

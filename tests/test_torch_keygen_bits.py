@@ -73,12 +73,15 @@ def test_encode_ordered_uint32_is_identity_and_rejects_other_dtypes():
         bits.decode_ordered(x, torch.int64)
 
 
-@pytest.mark.parametrize("s", [0, 1, 8, 16, 31, 32, 37])
+@pytest.mark.parametrize("s", [*range(33), 37])
 def test_rotr32_matches_jax(s):
+    """Every rotation in 0..31 (and two past 32), on the edge values and
+    random keys: the int32 form gives the JAX package's bytes."""
     x = keygen.Pcg32(state=s + 1).fill(1000)
-    x[:3] = [0, 1, 0xFFFFFFFF]
-    got = bits.rotr32(torch.from_numpy(x), s).numpy()
-    np.testing.assert_array_equal(got, np.asarray(jbits.rotr32(jnp.asarray(x), s)))
+    x[:5] = [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    got = bits.rotr32(torch.from_numpy(x), s)
+    assert got.dtype == torch.uint32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jbits.rotr32(jnp.asarray(x), s)))
 
 
 @pytest.mark.parametrize(

@@ -278,7 +278,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     checked = {path.relative_to(REPO).as_posix() for path in files}
     assert {f"gpu_radix_sort_tpu_torch/{m}" for m in (
         "ops/table.py", "ops/radix_sort.py", "ops/bits.py", "ops/binning.py",
-        "utils/keygen.py")} <= checked
+        "utils/keygen.py", "utils/timers.py", "utils/config.py", "data/__init__.py",
+        "data/interface.py", "data/helpers.py", "data/mem.py", "data/file.py",
+        "data/device.py", "parallel/bucket_reader.py", "parallel/storage_sort.py",
+        "parallel/serverless.py", "parallel/worker_main.py")} <= checked
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
