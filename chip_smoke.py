@@ -58,7 +58,19 @@
    keys, one B6 launch (destination aligned and shifted by one key, beside
    copy_ of the same bytes) and one B7 round, and profiles the one-rank rdma
    sort and the four-rank rdma_overlap sort by kernel;
-11. drives the storage plane at the reference's distributed configuration
+11. drives the mesh sample sort (PSRS, sample_path) of the same 256Mi keys
+   on one rank and on four ranks of cuda:0, with reassembly "sort" and
+   "merge", each with the launch counts set to 0 just before and read just
+   after, exact against np.sort; shards of <= 2^14 keys (B3); int32 and
+   float32 keys at 2^20; all-equal and 256Mi Zipf(1.1) keys with no
+   fallback; reverse block-sorted keys at 16Mi, OverflowError_ without the
+   fallback and exact through it; sort_key_value_distributed of 128Mi rows
+   of 8 bytes and 32Mi of 64 bytes; sort_distributed_64 of the 256Mi
+   uint64 keys in one pass and of 64Mi through the LSD composition;
+   sort_key_value_distributed_64 of 128Mi rows of 8 bytes; times each
+   beside torch.sort of the same keys and the four-rank mesh LSD rdma sort,
+   its peak memory, and profiles the four-rank 32-bit sorts;
+12. drives the storage plane at the reference's distributed configuration
    (storage_path): sort_distrib_from_raw of 512Mi PCG32 keys at width 8
    over 2 workers, exact against one np.sort, with launch counts: sort_full
    of the 2^29 keys; the device backend's fused loop (times of 3 calls,
@@ -77,18 +89,24 @@ Without a CUDA device it exits 1 and prints no result.
 
     python3 chip_smoke.py --all-cards
 
-runs only the mesh LSD sort across every visible card (two or more), the
-route one card cannot reach: B6 and B7 store through peer access into the
+runs only the mesh sorts (LSD and sample) across every visible card (two or
+more), the route one card cannot reach: B6 and B7 store through peer access into the
 other cards' buffers, and events order the cards' streams.  It holds both
 kernels against their plain versions across cards (B6 also at every word
 offset of source and receivers past a 16-byte boundary), sorts the same 256Mi
 keys exactly through rdma, rdma_overlap and alltoall with launch counts,
 and times each sort, a B6 round and a B7 round (overlapped and serial)
-across the cards against the same work on as many ranks of cuda:0.
+across the cards against the same work on as many ranks of cuda:0; and the
+same for the sample sort, both reassemblies.
 
     python3 chip_smoke.py --storage
 
-builds the kernels and runs only the storage path (11. above) on one card.
+builds the kernels and runs only the storage path (12. above) on one card.
+
+    python3 chip_smoke.py --sample
+
+builds the kernels and runs only the sample path (11. above) on one card,
+making its oracles itself.
 """
 
 from __future__ import annotations
@@ -813,11 +831,11 @@ def check_group_sort_send(dev, rng, tiles, widths, groups, n_big: int) -> int:
 
 
 def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
-              b6_info: dict, b7_info: dict) -> dict:
+              b6_info: dict, b7_info: dict, want: np.ndarray) -> dict:
     """Steps 8-10: the exchange kernels, the mesh LSD sort of ``part`` (256Mi
-    PCG32 keys on the card) and their times.  Returns the results for the
-    JSON line (``b6_info`` and ``b7_info``, the kernels' ptxas reports and
-    B7's occupancy, go into their rows)."""
+    PCG32 keys on the card, ``want`` their np.sort) and their times.
+    Returns the results for the JSON line (``b6_info`` and ``b7_info``, the
+    kernels' ptxas reports and B7's occupancy, go into their rows)."""
     import gpu_radix_sort_tpu_torch as port
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
@@ -864,11 +882,6 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     def exact(out: torch.Tensor, want: np.ndarray, what: str) -> None:
         if not np.array_equal(out.cpu().numpy(), want):
             fail(f"{what} differs from np.sort")
-
-    t0 = time.perf_counter()
-    want = np.sort(part_np)
-    log(f"mesh path: np.sort of {N_MESH} keys in {time.perf_counter() - t0:.1f} s "
-        f"(the oracle of every {N_MESH}-key check below)")
 
     # -- main path three: sort_distributed(rdma) on key_mesh() ---------------
     mesh1 = key_mesh()
@@ -926,7 +939,6 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
         exact(out, want, f"four-rank sort_distributed {exchange}")
         del out
     log("four ranks: rdma and rdma_overlap exact against np.sort")
-    del want
 
     n_mid = 1 << 24
     mid, mid_want = part[:n_mid], np.sort(part_np[:n_mid])
@@ -1049,7 +1061,7 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
 
 
 def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
-                  zipf_keys=None) -> dict:
+                  zipf_keys=None, keep: dict | None = None) -> dict:
     """The key-value, 64-bit and table paths at the JAX harness's sizes
     (gpu_radix_sort_tpu/bench/harness.py:125-207): each exact against a
     numpy oracle, with the launch counts set to 0 just before and read just
@@ -1057,8 +1069,9 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     of 10 by CUDA events), and profiles of two of them.  ``part`` holds the
     256Mi PCG32 keys of the partial path (on the card), ``part_np`` the same
     on the host; ``zipf_keys``, a future of the Zipf keys made beside the
-    run (:func:`start_zipf_keys`), or None to make them here.  Returns the
-    results for the JSON line."""
+    run (:func:`start_zipf_keys`), or None to make them here.  ``keep``, a
+    dict, receives the oracles the sample path reuses (see
+    :func:`sample_path`).  Returns the results for the JSON line."""
     import gpu_radix_sort_tpu_torch as port
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
@@ -1073,6 +1086,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
                 "single_block_sort": sb}
     none = dict.fromkeys(counters, 0)
     res = {"launches": {}, "peak_mib": {}, "ms": {}, "torch_ms": {}, "card": card}
+    keep = {} if keep is None else keep
 
     def run(name: str, fn, expect: dict):
         """fn() with the counts set to 0 just before and read just after;
@@ -1152,6 +1166,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
                  kv_expect)
     same(sk, keys_np.view(np.float32)[order_f], "sort_key_value f32 keys")
     same(sv, take_rows(payload8_np, order_f), "sort_key_value f32 payload")
+    keep["kv8"] = (order, payload8_np)
     del sk, sv, order_f, order
     timed("sort_key_value f32 keys p8B", lambda: port.sort_key_value(f32, payload8),
           lambda: port.sort_key_value(f32, payload8, strategy="torch"))
@@ -1192,6 +1207,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     u64 = torch.from_numpy(u64_np).to(dev)
     out = run("sort_full_u64", lambda: port.sort_full_u64(u64), {})
     want = np.sort(u64_np)
+    keep["u64"] = (u64_np, want)
     same(out, want, "sort_full_u64")
     del out
     timed("sort_full_u64", lambda: port.sort_full_u64(u64))
@@ -1250,6 +1266,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
                  {"binning": 2 * passes32 * 3})  # two words, a row index
     same(sk, keys64_np[order], f"{name} keys")
     same(sv, take_rows(payload8_np, order), f"{name} payload")
+    keep["kv64_order"] = order
     del sk, sv, order
 
     def kv64_torch():
@@ -1320,6 +1337,7 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     zipf = torch.from_numpy(zipf_np).to(dev)
     order = stable_order_u32(zipf_np)
     zs = zipf_np[order]
+    keep["zipf"] = (zipf_np, zs)
     starts = run_starts(zs)
     uniq_np = zs[starts]
     levels = (n // bs.TILE - 1).bit_length()
@@ -1367,6 +1385,293 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     del zipf, fvals, order, zs, starts, uniq_np, zipf_np, fvals_np
     torch.cuda.empty_cache()
     res["n_kv"], res["n"] = n_kv, n
+    return res
+
+
+N_SAMPLE_TYPED = 1 << 20  # int32 / float32 keys through the codec
+N_SAMPLE_ADV = 1 << 24  # reverse block-sorted keys: the fallback and the overflow
+N_SAMPLE_TINY = 8000  # shards and reassembly buffers of <= 2^14 keys: B3
+N_SAMPLE_KV8 = 1 << 27  # kv rows with 8-byte payloads
+N_SAMPLE_KV64 = 1 << 25  # kv rows with 64-byte payloads
+N_SAMPLE_LSD64 = 1 << 26  # the 64-bit LSD composition (single_pass=False)
+
+
+def sample_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
+                want: np.ndarray, keep: dict) -> dict:
+    """The mesh sample sort (PSRS) at full size, on one rank and on four
+    ranks of ``dev``: 32-bit keys (``part``, 256Mi PCG32 keys on the card,
+    ``want`` their np.sort) through both reassemblies, int32 / float32
+    keys, all-equal and Zipf(1.1) keys (no fallback), adversarial placement
+    (the fallback, and OverflowError_ without it), shards of <= 2^14 keys
+    (B3); kv rows with 8- and 64-byte payloads; 64-bit keys in one pass and
+    through the LSD composition, and 64-bit kv rows.  Each run has its
+    launch counts set to 0 just before and read just after and is exact
+    against a numpy oracle; times are CUDA-event medians of 10 beside
+    ``torch.sort`` of the same keys and the four-rank mesh LSD ``rdma``
+    sort.  ``keep`` holds oracles made by the kv and table path ("zipf",
+    "u64", "kv8", "kv64_order"); what it lacks is made here.  Returns the
+    results for the JSON line."""
+    import gpu_radix_sort_tpu_torch as port
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.ops.bits import encode_ordered64
+    from gpu_radix_sort_tpu_torch.parallel import distributed as dist
+    from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
+    from gpu_radix_sort_tpu_torch.utils import keygen, timers
+
+    t_path = time.perf_counter()
+    counters = {"block_sort": bs, "merge_level": ms, "single_block_sort": sb,
+                "digit_sort": ds, "binning": bn}
+    none = dict.fromkeys(counters, 0)
+    res = {"launches": {}, "peak_mib": {}, "ms": {}, "card": card}
+    passes32 = 32 // bn.PASS_WIDTH
+    n = part.numel()
+    P = MESH_RANKS
+    mesh1, mesh4 = key_mesh([dev]), key_mesh([dev] * P)
+
+    def run(name: str, fn, expect: dict):
+        """fn() with the counts set to 0 just before and read just after;
+        fails unless they are ``expect`` (kernels not named: 0)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: mod.launches for k, mod in counters.items()}
+        if got != {**none, **expect}:
+            fail(f"sample path {name}: launches {got}, expected {expect}")
+        res["launches"][name] = {k: v for k, v in got.items() if v}
+        res["peak_mib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        return out
+
+    def exact(got: torch.Tensor, want_np: np.ndarray, what: str) -> None:
+        g = got.cpu().numpy()
+        if g.dtype != want_np.dtype or g.shape != want_np.shape:
+            fail(f"sample path {what}: {g.dtype} {g.shape}, expected {want_np.dtype} "
+                 f"{want_np.shape}")
+        if g.dtype.kind == "f":  # NaNs and signed zeros compare as bits
+            g, want_np = g.view(f"u{g.itemsize}"), want_np.view(f"u{g.itemsize}")
+        if not np.array_equal(g, want_np):
+            fail(f"sample path {what} differs from the numpy oracle")
+
+    def levels(m: int, run_: int) -> int:
+        return ((m - 1) // run_).bit_length() if m > run_ else 0
+
+    def full_sort(m: int) -> dict:
+        if m <= sb.MAX_N:
+            return {"single_block_sort": 1}
+        return {"block_sort": 1, "merge_level": levels(m, bs.TILE)}
+
+    def keys_only(ranks: int, n_keys: int, reassembly: str) -> dict:
+        """Launches of the 32-bit sample sort of n_keys keys on ranks ranks."""
+        n_local = max(-(-n_keys // ranks), ranks)
+        cap = ss.default_pair_capacity(n_local, ranks, 1.5)
+        m = ranks * cap + n_local
+        parts = [full_sort(n_local)]
+        parts.append(full_sort(m) if reassembly == "sort" else {"merge_level": levels(m, cap)})
+        total: dict = {}
+        for d in parts:
+            for k, v in d.items():
+                total[k] = total.get(k, 0) + v * ranks
+        return total
+
+    def timed(name: str, fn) -> float:
+        res["ms"][name] = timers.time_cuda(fn)
+        return res["ms"][name]
+
+    # -- 32-bit keys: the main path, four ranks, then one rank ---------------
+    runs32 = [(P, mesh4, "sort"), (P, mesh4, "merge"), (1, mesh1, "sort"), (1, mesh1, "merge")]
+    for ranks, mesh_, reassembly in runs32:
+        name = f"u32 {reassembly} {ranks}r"
+        out = run(name, lambda: port.sort_distributed_sample(
+            part, mesh=mesh_, reassembly=reassembly, fallback=False),
+            keys_only(ranks, n, reassembly))
+        exact(out, want, f"sort_distributed_sample {name} of {n} keys")
+        del out
+        log(f"sample path: sort_distributed_sample(reassembly={reassembly!r}) of {n} PCG32 "
+            f"keys on {ranks} rank(s) of {dev} exact; launches {res['launches'][name]}; "
+            f"peak device memory {res['peak_mib'][name]:.0f} MiB above the keys")
+
+    n_tiny = N_SAMPLE_TINY
+    for reassembly in ("sort", "merge"):
+        name = f"u32 {reassembly} {P}r tiny"
+        out = run(name, lambda: port.sort_distributed_sample(
+            part[:n_tiny], mesh=mesh4, reassembly=reassembly, fallback=False),
+            keys_only(P, n_tiny, reassembly))
+        exact(out, np.sort(part_np[:n_tiny]), f"{name} ({n_tiny} keys)")
+    n_typed = N_SAMPLE_TYPED
+    ints = part_np[:n_typed].view(np.int32)
+    floats = part_np[n_typed:2 * n_typed].copy()
+    floats[:8] = [0x7FC00000, 0xFFC00001, 0x00000000, 0x80000000, 0x7F800000, 0xFF800000,
+                  0x80000000, 0x00000000]
+    floats[8::97] = 0x80000000
+    floats = floats.view(np.float32)
+    exact(port.sort_distributed_sample(torch.from_numpy(ints).to(dev), mesh=mesh4),
+          np.sort(ints), f"int32 keys at {n_typed}")
+    got = port.sort_distributed_sample(torch.from_numpy(floats).to(dev), mesh=mesh4,
+                                       reassembly="merge")
+    if not np.array_equal(total_order_np(got.cpu().numpy()), np.sort(total_order_np(floats))):
+        fail("sample path: float32 keys differ from the numpy totalOrder sort")
+    equal = torch.full((n,), 0x9E3779B9 - (1 << 32), dtype=torch.int32, device=dev)
+    out = run(f"u32 all-equal {P}r", lambda: port.sort_distributed_sample(
+        equal.view(torch.uint32), mesh=mesh4, fallback=False), keys_only(P, n, "sort"))
+    if not torch.equal(out.view(torch.int32), equal):
+        fail(f"sample path: all-equal keys at {n} differ")
+    del out, equal, got
+    if "zipf" in keep:
+        zipf_np, zipf_sorted = keep["zipf"]
+    else:
+        zipf_np = keygen.generate_zipf_keys(n, alpha=1.1)
+        zipf_sorted = np.sort(zipf_np)
+    zipf = torch.from_numpy(zipf_np).to(dev)
+    out = run(f"u32 zipf {P}r", lambda: port.sort_distributed_sample(
+        zipf, mesh=mesh4, fallback=False), keys_only(P, n, "sort"))
+    exact(out, zipf_sorted, f"Zipf(1.1) keys at {n}")
+    del out, zipf, zipf_np, zipf_sorted
+    n_adv = N_SAMPLE_ADV
+    adv_sorted = want[::n // n_adv]  # sorted keys: reverse them block by block
+    adv = torch.from_numpy(adv_sorted.reshape(P, -1)[::-1].copy().reshape(-1)).to(dev)
+    try:
+        port.sort_distributed_sample(adv, mesh=mesh4, fallback=False)
+        fail("sample path: adversarial placement did not raise OverflowError_")
+    except ss.OverflowError_:
+        pass
+    exact(port.sort_distributed_sample(adv, mesh=mesh4), adv_sorted,
+          f"adversarial placement at {n_adv} through the fallback")
+    del adv
+    log(f"sample path: {n_tiny} keys (B3) exact through both reassemblies; int32 and "
+        f"float32 (NaNs, +-0.0) at {n_typed} exact; all-equal and Zipf(1.1) keys at {n} "
+        f"exact with no fallback; reverse block-sorted keys at {n_adv} raise "
+        f"OverflowError_ without the fallback and are exact through it "
+        f"({time.perf_counter() - t_path:.1f} s so far)")
+
+    # -- times of the 32-bit sort ----------------------------------------------
+    shards4, shards1 = shard(part, mesh4), shard(part, mesh1)
+    fn4 = {r: ss.build_sample_sort(mesh4, n // P, reassembly=r)[0] for r in ("sort", "merge")}
+    fn1 = {r: ss.build_sample_sort(mesh1, n, reassembly=r)[0] for r in ("sort", "merge")}
+    for r in ("sort", "merge"):
+        timed(f"u32 {r} {P}r", lambda: fn4[r](shards4))
+        timed(f"u32 {r} 1r", lambda: fn1[r](shards1))
+    timed(f"u32 sort {P}r entry", lambda: port.sort_distributed_sample(part, mesh=mesh4))
+    lsd = dist.build_distributed_sort(mesh4, n // P, width=8, exchange="rdma")
+    t_torch = timed("torch.sort u32", lambda: rs.sort_full(part, strategy="torch"))
+    t_lsd = timed(f"mesh LSD rdma {P}r", lambda: lsd(shards4))
+    log(f"time [{card}]: sample sort of {n} keys, {P} ranks on {dev}: reassembly sort "
+        f"{res['ms'][f'u32 sort {P}r']:.3f} ms, merge {res['ms'][f'u32 merge {P}r']:.3f} ms "
+        f"(build_sample_sort's function; sort_distributed_sample whole "
+        f"{res['ms'][f'u32 sort {P}r entry']:.3f} ms); one rank: sort "
+        f"{res['ms']['u32 sort 1r']:.3f} ms, merge {res['ms']['u32 merge 1r']:.3f} ms; "
+        f"torch.sort {t_torch:.3f} ms; mesh LSD rdma, {P} ranks, {t_lsd:.3f} ms")
+    syncs = host_syncs(lambda: fn4["sort"](shards4))
+    res["host_syncs_4r"] = len(syncs)
+    control = host_syncs(lambda: int(part[0]))  # a read of the device waits
+    if not control:
+        fail("sample path: sync debug mode saw no wait in a read of the device")
+    log(f"sample path: {len(syncs)} host synchronisations in build_sample_sort's "
+        f"function{': ' if syncs else ''}{'; '.join(sorted(set(syncs))[:3])} (a read "
+        f"of the device: {len(control)})")
+    log_profile(card, f"sort_distributed_sample, {P} ranks on {dev}, {n} keys, "
+                f"reassembly sort", lambda: fn4["sort"](shards4), top=10)
+    log_profile(card, f"sort_distributed_sample, {P} ranks on {dev}, {n} keys, "
+                f"reassembly merge", lambda: fn4["merge"](shards4), top=6)
+    del shards4, shards1, fn4, fn1, lsd
+    torch.cuda.empty_cache()
+
+    # -- key-value rows --------------------------------------------------------
+    kv_sort = 2 * passes32  # launches of one stable kv sort: keys and a column a pass
+    n_kv = N_SAMPLE_KV8
+    keys = part[:n_kv]
+    if "kv8" in keep and keep["kv8"][0].size == n_kv:
+        order, payload8_np = keep["kv8"]
+    else:
+        order = stable_order_u32(part_np[:n_kv])
+        payload8_np = keygen.generate_payloads(n_kv, payload_bytes=8)
+    payload8 = torch.from_numpy(payload8_np).to(dev)
+    name = f"kv p8B {P}r"
+    sk, sv = run(name, lambda: port.sort_key_value_distributed(keys, payload8, mesh=mesh4),
+                 {"binning": 2 * kv_sort * P})
+    exact(sk, part_np[:n_kv][order], f"{name} keys")
+    exact(sv, take_rows(payload8_np, order), f"{name} payload")
+    del sk, sv, order
+    timed(name, lambda: port.sort_key_value_distributed(keys, payload8, mesh=mesh4))
+    timed("torch kv p8B", lambda: rs.sort_key_value(keys, payload8, strategy="torch"))
+    n_kv64 = N_SAMPLE_KV64
+    keys64b = part[:n_kv64]
+    order = stable_order_u32(part_np[:n_kv64])
+    payload64_np = keygen.generate_payloads(n_kv64, payload_bytes=64)
+    payload64 = torch.from_numpy(payload64_np).to(dev)
+    name = f"kv p64B {P}r"
+    sk, sv = run(name, lambda: port.sort_key_value_distributed(keys64b, payload64, mesh=mesh4),
+                 {"binning": 2 * kv_sort * P})
+    exact(sk, part_np[:n_kv64][order], f"{name} keys")
+    exact(sv, take_rows(payload64_np, order), f"{name} payload")
+    del sk, sv, order, payload64_np
+    timed(name, lambda: port.sort_key_value_distributed(keys64b, payload64, mesh=mesh4))
+    timed("torch kv p64B", lambda: rs.sort_key_value(keys64b, payload64, strategy="torch"))
+    del payload64
+    log(f"sample path: sort_key_value_distributed of {n_kv} keys with 8-byte payloads and "
+        f"{n_kv64} with 64-byte payloads on {P} ranks, exact against numpy's stable order; "
+        f"{res['ms'][f'kv p8B {P}r']:.3f} / {res['ms'][f'kv p64B {P}r']:.3f} ms, the "
+        f"torch route on one device {res['ms']['torch kv p8B']:.3f} / "
+        f"{res['ms']['torch kv p64B']:.3f} ms ({time.perf_counter() - t_path:.1f} s so far)")
+
+    # -- 64-bit keys -----------------------------------------------------------
+    torch.cuda.empty_cache()
+    if "u64" in keep:
+        u64_np, u64_sorted = keep["u64"]
+    else:
+        u64_np = np.random.default_rng(64).integers(0, 1 << 64, n, dtype=np.uint64)
+        u64_sorted = np.sort(u64_np)
+    u64 = torch.from_numpy(u64_np).to(dev)
+    name = f"u64 {P}r"
+    out = run(name, lambda: port.sort_distributed_64(u64, mesh=mesh4), {})
+    exact(out, u64_sorted, f"sort_distributed_64 of {n} keys")
+    del out
+    timed(name, lambda: port.sort_distributed_64(u64, mesh=mesh4))
+    timed("torch u64", lambda: torch.sort(encode_ordered64(u64)))
+    n_lsd = N_SAMPLE_LSD64
+    name = f"u64 lsd {P}r"
+    out = run(name, lambda: port.sort_distributed_64(u64[:n_lsd], mesh=mesh4, single_pass=False),
+              {"binning": 2 * 2 * kv_sort * P})  # two kv sample sorts
+    exact(out, np.sort(u64_np[:n_lsd]), f"sort_distributed_64(single_pass=False) of {n_lsd}")
+    del out
+    timed(name, lambda: port.sort_distributed_64(u64[:n_lsd], mesh=mesh4, single_pass=False))
+    keys64 = u64[:n_kv]
+    if "kv64_order" in keep and keep["kv64_order"].size == n_kv:
+        order = keep["kv64_order"]
+    else:
+        order = np.argsort(u64_np[:n_kv], kind="stable")
+    name = f"kv64 p8B {P}r"
+    sk, sv = run(name, lambda: port.sort_key_value_distributed_64(keys64, payload8, mesh=mesh4),
+                 {"binning": 2 * 3 * kv_sort * P})  # two words and a column, twice
+    exact(sk, u64_np[:n_kv][order], f"{name} keys")
+    exact(sv, take_rows(payload8_np, order), f"{name} payload")
+    del sk, sv, order
+    timed(name, lambda: port.sort_key_value_distributed_64(keys64, payload8, mesh=mesh4))
+
+    def kv64_torch():
+        o = torch.sort(encode_ordered64(keys64), stable=True).indices
+        return keys64.view(torch.int64)[o], payload8[o]
+
+    timed("torch kv64 p8B", kv64_torch)
+    log(f"sample path: sort_distributed_64 of {n} uint64 keys (one pass) and of {n_lsd} "
+        f"(the LSD composition), sort_key_value_distributed_64 of {n_kv} with 8-byte "
+        f"payloads, on {P} ranks, exact; {res['ms'][f'u64 {P}r']:.3f} / "
+        f"{res['ms'][f'u64 lsd {P}r']:.3f} / {res['ms'][f'kv64 p8B {P}r']:.3f} ms; "
+        f"torch.sort of the int64 words {res['ms']['torch u64']:.3f} ms, a stable "
+        f"torch.sort and a row gather {res['ms']['torch kv64 p8B']:.3f} ms")
+    del u64, keys64, payload8, u64_np, u64_sorted, payload8_np
+    torch.cuda.empty_cache()
+    res.update(n=n, ranks=P, n_typed=n_typed, n_adv=n_adv, n_tiny=n_tiny, n_kv8=n_kv,
+               n_kv64=n_kv64, n_lsd64=n_lsd)
+    log(f"sample path: every phase exact ({time.perf_counter() - t_path:.1f} s)")
     return res
 
 
@@ -1852,15 +2157,25 @@ def main() -> int:
 
     del vals
     torch.cuda.empty_cache()
-    kv = kv_table_path(dev, card, part, part_np, zipf_keys)
+    keep: dict = {}
+    kv = kv_table_path(dev, card, part, part_np, zipf_keys, keep)
     zipf_pool.shutdown()
+    t0 = time.perf_counter()
+    want = np.sort(part_np)
+    log(f"np.sort of the {N_PART} keys in {time.perf_counter() - t0:.1f} s (the oracle "
+        f"of the mesh and sample paths)")
     mesh = mesh_path(dev, rng, card, part, part_np, rank_info["segment_copy_kernel"],
-                     rank_info["group_sort_send_kernel"])
-    del part
+                     rank_info["group_sort_send_kernel"], want)
+    sample = sample_path(dev, card, part, part_np, want, keep)
+    del part, want, keep
     torch.cuda.empty_cache()
     storage = storage_path(dev, card, part_np, stream)
     del part_np
     st_launches = storage["launches"]
+    sa_launches = sample["launches"]
+
+    def on_sample(kernel_name: str) -> dict:
+        return {k: v[kernel_name] for k, v in sa_launches.items() if kernel_name in v}
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -1878,6 +2193,7 @@ def main() -> int:
                launches_mesh_one_rank=mesh["launches_one_rank"]["block_sort"],
                launches_storage={k: v["block_sort"] for k, v in st_launches.items()
                                  if "block_sort" in v},
+               launches_sample=on_sample("block_sort"),
                **rank_info["block_sort_kernel"]),
         kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
                single_launches, err_single, ms_single, ms_single_plain, single_bound,
@@ -1887,6 +2203,7 @@ def main() -> int:
                counting_route_single_call_ms=ms_single_count_call,
                launches_storage={k: v["single_block_sort"] for k, v in st_launches.items()
                                  if "single_block_sort" in v},
+               launches_sample=on_sample("single_block_sort"),
                **rank_info["single_block_sort_kernel<14>"]),
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
@@ -1896,6 +2213,7 @@ def main() -> int:
                launches_mesh_one_rank=mesh["launches_one_rank"]["merge_level"],
                launches_storage={k: v["merge_level"] for k, v in st_launches.items()
                                  if "merge_level" in v},
+               launches_sample=on_sample("merge_level"),
                **rank_info["merge_level_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
@@ -1911,13 +2229,14 @@ def main() -> int:
                launches_kv_u64_table={k: v["binning"] for k, v in kv["launches"].items()
                                       if "binning" in v},
                launches_storage={k: v["binning"] for k, v in st_launches.items()
-                                 if "binning" in v}),
+                                 if "binning" in v},
+               launches_sample=on_sample("binning")),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
-        "storage": storage, "card": card}))
+        "sample": sample, "storage": storage, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1942,7 +2261,8 @@ def synced_ms(fn, devices: list, iters: int = 10) -> float:
 def host_syncs(fn) -> list[str]:
     """The calls in ``fn()`` that make the host wait for a card, from
     PyTorch's sync debug mode: a single controller that waits on one card
-    cannot enqueue the others' work meanwhile."""
+    cannot enqueue the others' work meanwhile.  (The mode's own notice that
+    it is a prototype, given once a process, is not one of them.)"""
     import warnings
 
     torch.cuda.synchronize()
@@ -1954,7 +2274,7 @@ def host_syncs(fn) -> list[str]:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return [f"{'/'.join(w.filename.split('/')[-3:])}:{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message)]
+            if "called a synchronizing" in str(w.message)]
 
 
 def all_cards_main() -> int:
@@ -1996,6 +2316,7 @@ def all_cards_path(devs: list, card: str) -> dict:
     from gpu_radix_sort_tpu_torch.parallel import distributed as dist
     from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
     from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
     from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
     from gpu_radix_sort_tpu_torch.utils import keygen
 
@@ -2067,6 +2388,28 @@ def all_cards_path(devs: list, card: str) -> dict:
             fail(f"sort_distributed {exchange} across {P} cards differs from np.sort")
         del out
     log("all cards: rdma, rdma_overlap and alltoall exact against np.sort")
+    cap = ss.default_pair_capacity(n_local, P, 1.5)
+    for reassembly in ("sort", "merge"):
+        for mod in counters.values():
+            mod.launches = 0
+        out = port.sort_distributed_sample(part, mesh=mesh, reassembly=reassembly,
+                                           fallback=False)
+        sync()
+        got = {name: mod.launches for name, mod in counters.items()}
+        launches[f"sample {reassembly}"] = got
+        reassembly_levels = (((P * cap + n_local - 1) // bs.TILE).bit_length()
+                             if reassembly == "sort" else ((P * cap + n_local - 1) // cap).bit_length())
+        expect = {"segment_copy": 0, "group_sort_send": 0,
+                  "block_sort": P * (2 if reassembly == "sort" else 1),
+                  "merge_level": P * (levels + reassembly_levels), "binning": 0}
+        log(f"all cards: sort_distributed_sample(reassembly={reassembly!r}) of {N_MESH} "
+            f"PCG32 keys on {P} cards, launches {got}")
+        if got != expect:
+            fail(f"sample sort {reassembly} across cards launches {got}, expected {expect}")
+        if not np.array_equal(out.cpu().numpy(), want):
+            fail(f"sort_distributed_sample {reassembly} across {P} cards differs from np.sort")
+        del out
+    log("all cards: the sample sort, both reassemblies, exact against np.sort")
     del want
 
     # -- times: across the cards, and the same work on P ranks of cuda:0 ------
@@ -2084,6 +2427,20 @@ def all_cards_path(devs: list, card: str) -> dict:
             f"{res[f'{exchange}_one_card_ms']:.3f} ms (host clock through a synchronise "
             f"of every card, median of 10); {len(syncs)} host synchronisations in a "
             f"sort{': ' if syncs else ''}{'; '.join(sorted(set(syncs))[:3])}")
+
+    for reassembly in ("sort", "merge"):
+        fn_one = ss.build_sample_sort(one_card, n_local, reassembly=reassembly)[0]
+        fn_cards = ss.build_sample_sort(mesh, n_local, reassembly=reassembly)[0]
+        key = f"sample_{reassembly}"
+        res[f"{key}_one_card_ms"] = synced_ms(lambda: fn_one(shards_one), devs)
+        res[f"{key}_cards_ms"] = synced_ms(lambda: fn_cards(shards_cards), devs)
+        syncs = host_syncs(lambda: fn_cards(shards_cards))
+        res[f"{key}_host_syncs"] = len(syncs)
+        log(f"time [{card}]: sample sort ({reassembly}), {N_MESH} keys, {P} ranks: {P} "
+            f"cards {res[f'{key}_cards_ms']:.3f} ms; one card {res[f'{key}_one_card_ms']:.3f} "
+            f"ms (host clock through a synchronise of every card, median of 10); "
+            f"{len(syncs)} host synchronisations in a sort"
+            f"{': ' if syncs else ''}{'; '.join(sorted(set(syncs))[:3])}")
 
     for where, shards in (("one_card", shards_one), ("cards", shards_cards)):
         res[f"b6_round_{where}_ms"] = synced_ms(b6_round(shards), devs)
@@ -2114,6 +2471,38 @@ def storage_main() -> int:
     return 0
 
 
+def sample_main() -> int:
+    """``--sample``: the kernels' build and the sample path alone, on the
+    partial path's 256Mi PCG32 keys (its oracles made here)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+    from gpu_radix_sort_tpu_torch.utils import keygen
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    zipf_pool, zipf_keys = start_zipf_keys(N_PART)
+    build.load()
+    dev = torch.device("cuda", 0)
+    part_np = keygen.Pcg32().fill(N_PART)
+    part = torch.from_numpy(part_np).to(dev)
+    want = np.sort(part_np)
+    zipf_np = zipf_keys.result()
+    zipf_pool.shutdown()
+    keep = {"zipf": (zipf_np, np.sort(zipf_np))}
+    log(f"sample path: inputs and oracles made in {time.perf_counter() - t_start:.1f} s")
+    res = sample_path(dev, card, part, part_np, want, keep)
+    print(json.dumps({"sample": res}))
+    log(f"chip_smoke --sample: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
-    mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main}
+    mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main,
+             ("--sample",): sample_main}
     sys.exit(mains.get(tuple(sys.argv[1:]), main)())

@@ -4,8 +4,8 @@ The same public surface as the JAX package, on PyTorch tensors: sorts run on
 the device of the tensor they are given.  On a CUDA tensor the sorts go
 through kernels written by hand for Hopper (``csrc/``, built with nvcc at
 first use); on a CPU tensor through those kernels' plain PyTorch versions.
-The mesh sorts run over a list of devices held by one process
-(``parallel/``); the table operators (hash partition, filter, group
+The mesh sorts -- LSD and sample sort -- run over a list of devices held by
+one process (``parallel/``); the table operators (hash partition, filter, group
 aggregate) are in ``ops/table.py``; the storage plane -- DistribArrays
 (``data/``) and the storage round loop with in-process and subprocess
 workers, checkpoint and resume (``parallel/storage_sort.py``,
@@ -45,6 +45,10 @@ from .parallel import (
     sort_distrib_from_raw_kv64,
     sort_distrib_from_raw_u64,
     sort_distributed,
+    sort_distributed_64,
+    sort_distributed_sample,
+    sort_key_value_distributed,
+    sort_key_value_distributed_64,
 )
 from .utils.config import SortConfig
 from .utils.timers import SortStats
@@ -81,6 +85,10 @@ __all__ = [
     "generate_zipf_keys",
     "generate_payloads",
     "sort_distributed",
+    "sort_distributed_sample",
+    "sort_distributed_64",
+    "sort_key_value_distributed",
+    "sort_key_value_distributed_64",
     "build_distributed_sort",
     "key_mesh",
     "sort_distrib_from_raw",

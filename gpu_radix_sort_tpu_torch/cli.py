@@ -1,5 +1,5 @@
 """Command-line entry point (ported subcommands: gen, sort --mode
-single|mesh|storage, worker).
+single|mesh|sample|storage, worker).
 
   gen     write the deterministic PCG32 key stream to a raw uint32 file
   sort    sort keys from a raw uint32 file (or generated ones)
@@ -9,8 +9,10 @@ The file format is the JAX package's: raw native-endian uint32 keys.
 ``sort --mode storage`` runs the storage-mediated round loop
 (parallel/storage_sort.py) over ``--backend mem|file|device`` with
 ``--worker local|subprocess|pool``; its knobs fall back to the GRS_*
-environment (utils/config.py) when not given.  Every mode runs on the CUDA
-device unless ``--device cpu`` is given.
+environment (utils/config.py) when not given.  ``--mode mesh`` and
+``--mode sample`` (the LSD and the sample sort) run over every CUDA device,
+or one CPU rank with ``--device cpu``.  Every mode runs on the CUDA device
+unless ``--device cpu`` is given.
 Run as ``python -m gpu_radix_sort_tpu_torch``.
 """
 
@@ -73,10 +75,12 @@ def _sort(keys: np.ndarray, args, device: torch.device) -> torch.Tensor:
         from .ops.radix_sort import sort_full
 
         return sort_full(torch.from_numpy(keys).to(device), strategy=args.strategy)
-    from .parallel import key_mesh, sort_distributed
+    from .parallel import key_mesh, sort_distributed, sort_distributed_sample
 
     # --device cuda: every CUDA device; --device cpu: one CPU rank
     mesh = key_mesh() if device.type == "cuda" else key_mesh([device])
+    if args.mode == "sample":
+        return sort_distributed_sample(torch.from_numpy(keys), mesh=mesh)
     return sort_distributed(
         torch.from_numpy(keys), mesh=mesh,
         width=args.width if args.width is not None else 8,
@@ -85,8 +89,6 @@ def _sort(keys: np.ndarray, args, device: torch.device) -> torch.Tensor:
 
 
 def _cmd_sort(args) -> int:
-    if args.mode not in ("single", "mesh", "storage"):
-        raise NotImplementedError(f"sort --mode {args.mode} is not yet ported")
     keys = _load_keys(args)
     device = torch.device(args.device or "cuda")
     t0 = time.perf_counter()

@@ -10,6 +10,8 @@ comes out as one run of 2L, ascending iff p is even.
 
     sort_full_large   block_sort(alternate) -> merge_level(L) for
                       L = TILE, 2 TILE, ... while L < n
+    merge_presorted   ascending runs, odd runs reversed -> merge_level(L)
+                      for L = run, 2 run, ... while L < n
 
 The kernel writes B_OUT keys a CUDA block: two warps find the block's
 merge-path splits, 32 probes a step; the two input slices reach shared
@@ -19,10 +21,9 @@ pair.  Bound on this card: each level reads and writes every key once, 8
 bytes a key; at 64M keys the tile pass and 12 levels move 13 x 512 MiB.
 
 Not carried over: ``_rowstage_prep`` / ``stage1_rows`` (an XLA row sort
-that shortened the TPU network), ``b_out_top`` (bigger upper-level blocks)
-and ``merge_presorted``; the first two are TPU levers to measure again on
-the H100, the last belongs to a later slice.  Padding to a power of two is
-not needed either: both kernels take a short last run.
+that shortened the TPU network) and ``b_out_top`` (bigger upper-level
+blocks), TPU levers to measure again on the H100.  Padding to a power of
+two is not needed either: both kernels take a short last run.
 
 On a CPU tensor :func:`merge_level` runs :func:`merge_level_plain`, a sort
 of each run pair; on a CUDA tensor it launches the kernel or raises.
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from .bits import KEY_DTYPE
 from .block_sort import TILE, block_sort, check_keys, sort_runs_plain
 
 THREADS = 512  # threads a block (kThreads in csrc/merge_path.cu)
@@ -198,3 +200,35 @@ def sort_full_large(keys: torch.Tensor, *, tile: int = TILE) -> torch.Tensor:
         x = merge_level(x, L)
         L *= 2
     return x
+
+
+def merge_presorted(x: torch.Tensor, run: int) -> torch.Tensor:
+    """Ascending sort of a 1-D uint32 tensor that is a sequence of ascending
+    runs of ``run`` keys, the last of them possibly shorter: the odd runs
+    reversed (the levels' alternating directions), then merge levels only,
+    from L = run upward -- no tile pass, and no level below ``run``.  The
+    sample sort's presorted-runs reassembly (``parallel/sample_sort.py``).
+    Returns a new tensor.
+
+    The JAX package's form (``pallas_merge.py:559-613``) asks for ``run``
+    and n/run powers of two and ``run`` at least its window-containment
+    bound (``min_presorted_run``); those are TPU bounds.  Here any run >= 1
+    and any n will do, as B2 takes a short last run, and on what the JAX
+    form accepts both give the same bytes (the sorted keys).  Exact with
+    duplicate keys, as :func:`merge_level` is."""
+    check_keys(x)
+    if run < 1:
+        raise ValueError(f"run length must be >= 1, got {run}")
+    n = x.numel()
+    y = x.view(torch.int32).clone()
+    whole = n // run
+    runs = y[:whole * run].view(whole, run)
+    runs[1::2] = runs[1::2].flip(1)
+    if whole % 2 and n % run:  # the short last run is an odd one
+        y[whole * run:] = y[whole * run:].flip(0)
+    y = y.view(KEY_DTYPE)
+    L = run
+    while L < n:
+        y = merge_level(y, L)
+        L *= 2
+    return y

@@ -21,7 +21,12 @@ each segment is added serially in index order from 0.0 (``index_add_``, as
 XLA's CPU scatter-add behind ``segment_sum`` does), so the bytes equal the
 JAX package's.  On a CUDA tensor ``index_add_`` adds by atomics in no fixed
 order; there :func:`segment_sum_scan` adds in a fixed tree order instead,
-the same bytes on every call.
+the same bytes on every call.  float32 min and max give the JAX package's
+bytes on NaNs and signed zeros (:func:`_float_nan_and_zero`).
+
+One exception to equal bytes, on every device: XLA on the CPU (as on the
+TPU) flushes float32 subnormals to zero in group sum, min and max, and the
+port keeps them, as CUDA does; there the port agrees with numpy instead.
 """
 
 from __future__ import annotations
@@ -228,13 +233,48 @@ def _from_order_key(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (key - (1 << 31)).to(dtype)
 
 
+_QUIET_BIT = 1 << 22  # the float32 mantissa bit that makes a NaN quiet
+
+
+def _float_nan_and_zero(values: torch.Tensor, seg: torch.Tensor,
+                        scanned: torch.Tensor, op: str) -> torch.Tensor:
+    """float32 prefix mins or maxes ``scanned`` made the JAX package's bytes
+    (``jnp.minimum``/``jnp.maximum`` in an associative scan, as XLA runs it
+    on the CPU): a prefix holding a NaN gives a NaN, and among its NaNs
+    min takes the first positive one, else the last negative one, max the
+    first negative one, else the last positive one, with its quiet bit set;
+    a zero result is +0.0.  One element alone is returned as it is.  Bit
+    operations only, so a CUDA tensor gives the same bytes.  (XLA on the
+    CPU also flushes subnormals to zero; the port keeps them, as CUDA
+    does.)"""
+    n = values.shape[0]
+    if n == 1:
+        return values
+    bits = values.view(torch.int32)
+    nan = torch.isnan(values)
+    negative = bits < 0
+    first_wins = nan & (~negative if op == "min" else negative)
+    last_wins = nan & (negative if op == "min" else ~negative)
+    idx = torch.arange(n, dtype=torch.int64, device=values.device)
+    # in [2^31, 2^32) the first NaN of its kind outranks later ones, in
+    # [1, 2^31) the last outranks earlier ones; 0 is no NaN
+    rank = torch.where(first_wins, _MASK32 - idx, torch.where(last_wins, idx + 1, 0))
+    pick = _cummax((seg << 32) | rank) & _MASK32
+    at = torch.where(pick > _MASK32 >> 1, _MASK32 - pick, pick - 1).clamp_(min=0)
+    nan_bits = bits[at] | _QUIET_BIT
+    out = scanned.view(torch.int32)
+    out = torch.where(out == torch.iinfo(torch.int32).min, 0, out)  # -0.0 -> +0.0
+    return torch.where(pick > 0, nan_bits, out).view(torch.float32)
+
+
 def _segmented_scan(values: torch.Tensor, is_start: torch.Tensor, op: str) -> torch.Tensor:
     """Inclusive segmented min or max of ``values`` over the runs that
     ``is_start`` opens: the running max of (run index << 32 | order key), the run
     index rising at each start, so no run sees an earlier one.  float32
-    compares in IEEE-754 totalOrder: -0.0 below +0.0, and a NaN is the
-    largest (+NaN) or smallest (-NaN) value, where the JAX package's
-    ``jnp.minimum``/``jnp.maximum`` return NaN for any run holding one."""
+    values order in IEEE-754 totalOrder, and then NaNs and zeros take the
+    JAX package's bytes (:func:`_float_nan_and_zero`)."""
+    if values.shape[0] >= 1 << 31:  # run indices and NaN ranks take 31 bits
+        raise ValueError("group min and max take fewer than 2^31 rows")
     key = _order_key(values)
     if op == "min":
         key = _MASK32 - key
@@ -242,7 +282,10 @@ def _segmented_scan(values: torch.Tensor, is_start: torch.Tensor, op: str) -> to
     scanned = _cummax((seg << 32) | key) & _MASK32
     if op == "min":
         scanned = _MASK32 - scanned
-    return _from_order_key(scanned, values.dtype)
+    out = _from_order_key(scanned, values.dtype)
+    if values.dtype == torch.float32:
+        return _float_nan_and_zero(values, seg, out, op)
+    return out
 
 
 def group_aggregate_sorted(

@@ -17,7 +17,7 @@ device.
     share a device share one gathered copy.
 
 The multi-process form over ``torch.distributed`` (NCCL) belongs with
-``multihost.py`` and is not ported yet (ROADMAP A8).
+``multihost.py`` and is not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations

@@ -692,7 +692,9 @@ def _stage_input(
     with stats.time("stage_input"):
         if getattr(factory, "device_native", False):
             t = data if isinstance(data, torch.Tensor) else torch.from_numpy(data)
-            t = t.reshape(-1).to(factory.device, copy=True)
+            # a new tensor, as an empty input's view may have stride 0
+            t = torch.empty(t.numel(), dtype=t.dtype, device=factory.device).copy_(
+                t.reshape(-1))
             raw = t.view(torch.int32) if t.dtype == KEY_DTYPE else t
             raw = raw.view(torch.uint8)
             arr = factory.create(f"{name}.input", create_shape([raw.numel()]))

@@ -200,8 +200,24 @@ def test_distributed_pipeline_matches_jax():
     jout, joverflow = jfn(jexample)
     assert int(overflow) == int(joverflow) == 0
     np.testing.assert_array_equal(pm.unshard(shards).numpy(), np.asarray(jout))
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        port.DistributedSortPipeline(algorithm="sample", mesh=CPU_MESH).build()
+    # algorithm="sample": PSRS, the same counts and valid prefixes as JAX's,
+    # and JAX's ValueError on a strategy or an exchange
+    fn, (example,) = port.DistributedSortPipeline(
+        algorithm="sample", n_local=n_local, mesh=CPU_MESH).build()
+    jfn, (jexample,) = JaxDistributedSortPipeline(
+        algorithm="sample", n_local=n_local, mesh=_jax_mesh()).build()
+    buffers, counts, overflow = fn(example)
+    jbuffers, jcounts, joverflow = jfn(jexample)
+    assert int(overflow) == int(joverflow) == 0
+    jcounts, jbuffers = np.asarray(jcounts), np.asarray(jbuffers).reshape(P, -1)
+    np.testing.assert_array_equal(pm.unshard(counts).numpy(), jcounts)
+    for r in range(P):
+        np.testing.assert_array_equal(buffers[r][:jcounts[r]].numpy(), jbuffers[r, :jcounts[r]])
+    for kwargs in ({"strategy": "torch"}, {"exchange": "rdma"}):
+        with pytest.raises(ValueError, match="ignores strategy/exchange"):
+            port.DistributedSortPipeline(algorithm="sample", mesh=CPU_MESH, **kwargs).build()
+        with pytest.raises(ValueError, match="ignores strategy/exchange"):
+            JaxDistributedSortPipeline(algorithm="sample", mesh=_jax_mesh(), **kwargs).build()
 
 
 def test_cli_sort_mode_mesh(tmp_path, capsys):

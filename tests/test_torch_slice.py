@@ -252,8 +252,15 @@ def test_cli_gen_and_sort_match_jax_file_format(tmp_path, capsys):
     assert "EXACT MATCH" in capsys.readouterr().err
     keys = np.fromfile(port_keys, dtype=np.uint32)
     np.testing.assert_array_equal(np.fromfile(out, dtype=np.uint32), np.sort(keys))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_cli(["sort", "--mode", "sample", "--n", "10", "--device", "cpu"])
+    # the sample sort (one CPU rank) writes the JAX package's file (its
+    # sample sort over the 8 CPU devices)
+    port_out, jax_out = tmp_path / "port_sample.bin", tmp_path / "jax_sample.bin"
+    assert port_cli(["sort", "--in", str(port_keys), "--mode", "sample", "--device", "cpu",
+                     "--verify", "--out", str(port_out)]) == 0
+    assert "EXACT MATCH" in capsys.readouterr().err
+    assert jax_cli(["sort", "--in", str(jax_keys), "--mode", "sample",
+                    "--out", str(jax_out)]) == 0
+    assert port_out.read_bytes() == jax_out.read_bytes()
 
 
 def test_wall_timer_takes_the_median():
@@ -281,7 +288,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "utils/keygen.py", "utils/timers.py", "utils/config.py", "data/__init__.py",
         "data/interface.py", "data/helpers.py", "data/mem.py", "data/file.py",
         "data/device.py", "parallel/bucket_reader.py", "parallel/storage_sort.py",
-        "parallel/serverless.py", "parallel/worker_main.py")} <= checked
+        "parallel/serverless.py", "parallel/worker_main.py",
+        "parallel/sample_sort.py")} <= checked
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]

@@ -50,6 +50,8 @@ def small_geometry(monkeypatch):
 
 def _keys(n: int = N, seed: int = 3) -> np.ndarray:
     keys = Pcg32(state=seed).fill(n)
+    if not n:
+        return keys
     keys[::7] = keys[0]  # ties in every digit
     keys[1::11] ^= np.uint32(0xFFFF0000)  # equal low halves, other high bits
     return keys
@@ -82,29 +84,35 @@ def _snapshot(arrs) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_raw(backend: str, width: int, nworker: int) -> bytes:
+def _jax_raw(backend: str, width: int, nworker: int, n: int = N) -> bytes:
     root = tempfile.mkdtemp()
     try:
         return jss.sort_distrib_from_raw(
-            _keys(), "s", _jax_factory(backend, root), width=width, nworker=nworker
+            _keys(n), "s", _jax_factory(backend, root), width=width, nworker=nworker
         ).tobytes()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 CASES = [(b, w, nw) for b in ("mem", "file", "device") for w, nw in ((4, 1), (8, 2), (8, 3))]
+# empty input on every backend; the device backend also at widths 1, 2 and
+# 16 and up to 7 workers
+EMPTY_CASES = [(b, 8, 2) for b in ("mem", "file")] + [
+    ("device", w, nw) for w, nw in ((1, 2), (2, 5), (8, 3), (16, 7))]
 
 
-@pytest.mark.parametrize("backend,width,nworker", CASES + [("mem", 16, 2)])
-def test_sort_distrib_from_raw_matches_jax(backend, width, nworker, tmp_path):
-    keys = _keys()
+@pytest.mark.parametrize("backend,width,nworker,n", [
+    pytest.param(b, w, nw, N, id=f"{b}-{w}-{nw}") for b, w, nw in CASES + [("mem", 16, 2)]
+] + [pytest.param(b, w, nw, 0, id=f"{b}-{w}-{nw}-empty") for b, w, nw in EMPTY_CASES])
+def test_sort_distrib_from_raw_matches_jax(backend, width, nworker, n, tmp_path):
+    keys = _keys(n)
     stats = SortStats()
     got = ss.sort_distrib_from_raw(
         keys, "s", _port_factory(backend, str(tmp_path)), _port_worker(backend),
         width=width, nworker=nworker, stats=stats,
     )
-    assert got.dtype == np.uint32
-    assert got.tobytes() == _jax_raw(backend, width, nworker)
+    assert got.dtype == np.uint32 and got.shape == (n,)
+    assert got.tobytes() == _jax_raw(backend, width, nworker, n)
     np.testing.assert_array_equal(got, np.sort(keys))
     assert stats.counters["rounds"] == 32 // width
 

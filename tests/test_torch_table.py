@@ -119,10 +119,29 @@ def test_filter_range_matches_jax(lo, hi):
     _same(got_p[:int(want_c)], np.asarray(want_p)[:int(want_c)])
 
 
-def _values(dtype: str, n: int) -> np.ndarray:
+# float32 bit patterns: quiet NaNs of two payloads and both signs, a
+# signalling NaN of each sign, zeros of both signs and the infinities
+NANS = np.array([0x7FC00000, 0xFFC00001, 0x7FC01234, 0x7F8CFC76, 0xFF8CFC77], np.uint32)
+ZEROS_INFS = np.array([0x00000000, 0x80000000, 0x7F800000, 0xFF800000], np.uint32)
+
+
+def _values(dtype: str, n: int, keys: np.ndarray | None = None) -> np.ndarray:
+    """Values for keys in [0, 50).  float32 with ``keys``: groups 0-9 hold
+    NaNs among the other values, groups 10-14 zeros of both signs, groups
+    15-19 zeros and infinities, group 20 only zeros and group 21 only -0.0
+    (so that a zero is their min or max)."""
     rng = np.random.default_rng(7)
     if dtype == "float32":
-        return (rng.random(n) * 100).astype(np.float32)
+        values = (rng.random(n) * 100).astype(np.float32)
+        if keys is not None:
+            bits = values.view(np.uint32)
+            pick = np.random.default_rng(11).random(n) < 0.3
+            for rows, pool in (((keys < 10) & pick, NANS),
+                               ((keys >= 10) & (keys < 15) & pick, ZEROS_INFS[:2]),
+                               ((keys >= 15) & (keys < 20) & pick, ZEROS_INFS),
+                               (keys == 20, ZEROS_INFS[:2]), (keys == 21, ZEROS_INFS[1:2])):
+                bits[rows] = pool[np.arange(rows.sum()) % pool.size]
+        return values
     info = np.iinfo(dtype)
     return rng.integers(info.min, int(info.max) + 1, n, dtype=np.int64).astype(dtype)
 
@@ -134,13 +153,52 @@ _jit_aggregate = jax.jit(jt.group_aggregate, static_argnames="op")
 @pytest.mark.parametrize("dtype", ["float32", "uint32", "int32", "uint8", "int16"])
 def test_group_aggregate_matches_jax(dtype, op):
     """Heavy duplicates (50 keys); full-range integers, so that sums wrap
-    and a signed compare would show."""
+    and a signed compare would show; float32 NaNs (quiet and signalling, of
+    both signs), zeros of both signs and infinities, whose min and max must
+    be the JAX package's bits."""
     keys = np.random.default_rng(8).integers(0, 50, N).astype(np.uint32)
-    values = _values(dtype, N)
+    values = _values(dtype, N, keys)
     want = _jit_aggregate(jnp.asarray(keys), jnp.asarray(values), op=op)
     got = pt.group_aggregate(_t(keys), _t(values), op=op)
     for g, w in zip(got, want):
         _same(g, w)
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("n", [1, 2, 1000])
+def test_float_min_max_of_random_bits_match_jax(n, op):
+    """Random float32 bit patterns (a NaN in about one row of 256, runs
+    with several), subnormals left out (see the next test): the bits of
+    every row equal the JAX package's, one element alone included."""
+    rng = np.random.default_rng(1)
+    bits = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    subnormal = (bits & 0x7F800000) == 0
+    bits[subnormal] &= 0x80000000
+    keys = np.sort(np.arange(n, dtype=np.uint32) % 37)
+    values = bits.view(np.float32)
+    want = _jit_aggregate(jnp.asarray(keys), jnp.asarray(values), op=op)
+    got = pt.group_aggregate(_t(keys), _t(values), op=op)
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_float_subnormals_are_kept_like_numpy(op):
+    """XLA on the CPU flushes float32 subnormals to zero in group sum, min
+    and max (for [1e-40, 2e-40] it returns 0.0); CUDA keeps them, and so
+    does the port on every device: it agrees with numpy there."""
+    tiny = np.float32(1e-40)
+    values = np.array([tiny, 2 * tiny, -tiny, 3 * tiny, 5.0, -2 * tiny], np.float32)
+    keys = np.array([0, 0, 1, 1, 2, 2], np.uint32)
+    starts = np.array([0, 2, 4])
+    reduce = {"sum": np.add, "min": np.minimum, "max": np.maximum}[op]
+    want = reduce.reduceat(values, starts)
+    assert (np.abs(want[:2]) < np.finfo(np.float32).tiny).all() and want[:2].all()
+    _, got, count = pt.group_aggregate_sorted(_t(keys), _t(values), op)
+    assert int(count) == 3
+    _same(got[:3], want)
+    jax_agg = np.asarray(jt.group_aggregate_sorted(jnp.asarray(keys), jnp.asarray(values), op)[1])
+    assert not jax_agg[:2].any()  # the reference's platform flushes them
 
 
 @pytest.mark.parametrize("op", ["count", "sum"])
