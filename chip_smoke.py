@@ -70,7 +70,17 @@
    sort_key_value_distributed_64 of 128Mi rows of 8 bytes; times each
    beside torch.sort of the same keys and the four-rank mesh LSD rdma sort,
    its peak memory, and profiles the four-rank 32-bit sorts;
-12. drives the storage plane at the reference's distributed configuration
+12. drives the distributed hash aggregate (aggregate_path) at the JAX
+   harness's cell, the count over 256Mi Zipf(1.2) keys (seed 9) on four
+   ranks of cuda:0 and on one, each with the launch counts set to 0 just
+   before and read just after, exact against np.unique with overflow 0,
+   no host wait inside it, its time, peak memory and (four ranks) profile,
+   beside torch.unique and group_aggregate of the same keys; float32 sum,
+   uint32 max, a predicate and key_order=True on four ranks of 16Mi keys;
+   the selftest's 12 500-key aggregate (B3); the key_order crossover; and
+   ``python -m gpu_radix_sort_tpu_torch selftest --n 100000`` as a child
+   process, which must pass;
+13. drives the storage plane at the reference's distributed configuration
    (storage_path): sort_distrib_from_raw of 512Mi PCG32 keys at width 8
    over 2 workers, exact against one np.sort, with launch counts: sort_full
    of the 2^29 keys; the device backend's fused loop (times of 3 calls,
@@ -97,16 +107,22 @@ offset of source and receivers past a 16-byte boundary), sorts the same 256Mi
 keys exactly through rdma, rdma_overlap and alltoall with launch counts,
 and times each sort, a B6 round and a B7 round (overlapped and serial)
 across the cards against the same work on as many ranks of cuda:0; and the
-same for the sample sort, both reassemblies.
+same for the sample sort, both reassemblies, and the hash aggregate count of
+256Mi Zipf(1.2) keys.
 
     python3 chip_smoke.py --storage
 
-builds the kernels and runs only the storage path (12. above) on one card.
+builds the kernels and runs only the storage path (13. above) on one card.
 
     python3 chip_smoke.py --sample
 
 builds the kernels and runs only the sample path (11. above) on one card,
 making its oracles itself.
+
+    python3 chip_smoke.py --aggregate
+
+builds the kernels and runs only the hash-aggregate path (12. above) on one
+card, making its inputs and oracles beside the build.
 """
 
 from __future__ import annotations
@@ -581,17 +597,23 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
     return res
 
 
-def start_zipf_keys(n: int):
-    """(pool, future) of generate_zipf_keys(n, alpha=1.1) in a process of
-    its own, started now: numpy's Zipf draws take about a minute at 256Mi
-    and hold the interpreter lock, so they run beside the phases before the
-    table path instead of in its way.  Shut the pool down after."""
+def side_pool():
+    """A pool of one process of its own for inputs and oracles made beside
+    the run: numpy's Zipf draws take about a minute at 256Mi and hold the
+    interpreter lock.  Shut it down after."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
+    return ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def start_zipf_keys(n: int):
+    """(pool, future) of generate_zipf_keys(n, alpha=1.1) in a
+    :func:`side_pool`, started now, so that the draws run beside the phases
+    before the table path instead of in its way."""
     from gpu_radix_sort_tpu_torch.utils import keygen
 
-    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    pool = side_pool()
     return pool, pool.submit(keygen.generate_zipf_keys, n, alpha=1.1)
 
 
@@ -1675,6 +1697,294 @@ def sample_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     return res
 
 
+N_AGG = 1 << 28  # the hash aggregate's Zipf(1.2) keys: 256Mi, 1 GiB
+N_AGG_VALUES = 1 << 24  # the value ops, the predicate and key_order
+N_AGG_TINY = 12_500  # selftest --n 100000's aggregate on one card: B3
+KEY_ORDER_SIZES = tuple(1 << e for e in range(10, 21))  # the key_order crossover
+
+
+def aggregate_inputs(n: int):
+    """The hash aggregate's cell (the JAX harness's, bench/harness.py:392-418):
+    generate_zipf_keys(n, alpha=1.2, seed=9), and its np.unique with
+    counts.  Run in a :func:`side_pool`."""
+    from gpu_radix_sort_tpu_torch.utils import keygen
+
+    keys = keygen.generate_zipf_keys(n, alpha=1.2, seed=9)
+    uniq, counts = np.unique(keys, return_counts=True)
+    return keys, uniq, counts
+
+
+def check_groups(what: str, keys: list, aggs: list, uniq: np.ndarray,
+                 counts: np.ndarray) -> None:
+    """Fails unless the ranks' (group keys, counts) numpy arrays are
+    np.unique's groups exactly: each rank's keys ascending, every (key,
+    count) one of np.unique's, every group once."""
+    seen = np.zeros(uniq.size, np.int64)
+    for r, (k, a) in enumerate(zip(keys, aggs)):
+        if k.size > 1 and not (k[1:] > k[:-1]).all():
+            fail(f"{what}: rank {r}'s group keys are not ascending")
+        idx = np.minimum(np.searchsorted(uniq, k), max(uniq.size - 1, 0))
+        if not (np.array_equal(uniq[idx], k) and np.array_equal(counts[idx], a.astype(np.int64))):
+            fail(f"{what}: rank {r}'s groups differ from np.unique")
+        seen += np.bincount(idx, minlength=uniq.size)
+    if not (seen == 1).all():
+        fail(f"{what}: {int((seen == 0).sum())} groups missing, {int((seen > 1).sum())} repeated")
+
+
+def aggregate_path(dev, card: str, inputs=None) -> dict:
+    """The distributed hash aggregate (hash-partition -> filter -> aggregate)
+    at the JAX harness's cell: the count over 256Mi Zipf(1.2) keys on four
+    ranks of ``dev`` and on one, through ``build_hash_aggregate``'s
+    function, with the launch counts set to 0 just before and read just
+    after, exact against np.unique with overflow 0; its time (CUDA-event
+    median of 10), peak memory, a profile, the host waits inside it (none
+    allowed), and the host entry's time; beside torch.unique and the
+    single-device group_aggregate of the same keys.  Then on four ranks of
+    16Mi of the keys through the host entry: float32 sum (within 1e-5 of
+    float64, the same bytes twice), uint32 max, a predicate, key_order=True;
+    the selftest's 12 500-key aggregate on one rank (B3); the key_order
+    crossover (np.argsort on the host against sort_key_value on the card,
+    2^10 to 2^20 groups); and ``python -m gpu_radix_sort_tpu_torch selftest
+    --n 100000`` as a child process, which must pass.  ``inputs``, a future
+    of :func:`aggregate_inputs`, or None to make them here."""
+    import gpu_radix_sort_tpu_torch as port
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.ops import table
+    from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
+    from gpu_radix_sort_tpu_torch.utils import keygen, timers
+
+    t_path = time.perf_counter()
+    counters = {"block_sort": bs, "merge_level": ms, "single_block_sort": sb,
+                "digit_sort": ds, "binning": bn}
+    none = dict.fromkeys(counters, 0)
+    res = {"launches": {}, "peak_mib": {}, "ms": {}, "card": card}
+    kv_sort = 2 * (32 // bn.PASS_WIDTH)  # a key-value sort: keys and one column a pass
+    P = MESH_RANKS
+
+    def run(name: str, fn, expect: dict):
+        """fn() with the counts set to 0 just before and read just after;
+        fails unless they are ``expect`` (kernels not named: 0)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: mod.launches for k, mod in counters.items()}
+        if got != {**none, **expect}:
+            fail(f"aggregate path {name}: launches {got}, expected {expect}")
+        res["launches"][name] = {k: v for k, v in got.items() if v}
+        res["peak_mib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**20
+        return out
+
+    def full_sort(m: int, ranks: int) -> dict:
+        if m <= sb.MAX_N:
+            return {"single_block_sort": ranks}
+        return {"block_sort": ranks, "merge_level": ranks * ((m - 1) // bs.TILE).bit_length()}
+
+    keys_np, uniq, counts = inputs.result() if inputs is not None else aggregate_inputs(N_AGG)
+    n = keys_np.size
+    log(f"aggregate path: {n} Zipf(1.2) keys, {uniq.size} groups, the largest "
+        f"{int(counts.max())} rows ({time.perf_counter() - t_path:.1f} s)")
+    keys = torch.from_numpy(keys_np).to(dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+
+    # -- the count at 256Mi on four ranks and on one -------------------------
+    for ranks in (P, 1):
+        mesh = key_mesh([dev] * ranks)
+        n_local = n // ranks
+        fn, cap = pp.build_hash_aggregate(mesh, n_local, op="count")
+        args = (shard(keys, mesh), shard(ones, mesh), shard(valid, mesh))
+        name = f"count {ranks}r"
+        gk, ga, ng, overflow = run(name, lambda: fn(*args),
+                                   {**full_sort(n_local, ranks), "binning": kv_sort * ranks})
+        if int(overflow):
+            fail(f"aggregate path {name}: overflow {int(overflow)}")
+        sizes = [int(g) for g in ng]
+        check_groups(f"aggregate path {name}", [k[:c].cpu().numpy() for k, c in zip(gk, sizes)],
+                     [a[:c].cpu().numpy() for a, c in zip(ga, sizes)], uniq, counts)
+        # the two sorts a rank runs, alone: of its hashes, and the final one
+        # over P x capacity rows, its groups first and 0xFFFFFFFF after
+        final_keys = torch.full((ranks * cap,), -1, dtype=torch.int32, device=dev)
+        final_keys[:sizes[0]] = gk[0][:sizes[0]].view(torch.int32)
+        final_col = torch.ones_like(final_keys).view(torch.uint32)
+        hashes = table.hash_u32(args[0][0])
+        del gk, ga, ng
+        res["ms"][f"hash sort a rank {name}"] = timers.time_cuda(lambda: port.sort_full(hashes))
+        res["ms"][f"final kv sort a rank {name}"] = timers.time_cuda(
+            lambda: port.sort_key_value(final_keys.view(torch.uint32), final_col))
+        del final_keys, final_col, hashes
+        res["ms"][name] = timers.time_cuda(lambda: fn(*args))
+        syncs = host_syncs(lambda: fn(*args))
+        if syncs:
+            fail(f"aggregate path {name}: the host waits inside fn at {sorted(set(syncs))}")
+        res[f"rows_per_s {name}"] = n / (res["ms"][name] * 1e-3)
+        log(f"time [{card}]: hash aggregate count of {n} Zipf(1.2) keys on {ranks} ranks of "
+            f"one card {res['ms'][name]:.3f} ms ({res[f'rows_per_s {name}']:.4g} rows/s; "
+            f"P x capacity = {ranks * cap} rows a rank's final sort); exact against np.unique "
+            f"({sum(sizes)} groups, by rank {sizes}), overflow 0; launches "
+            f"{res['launches'][name]}; peak {res['peak_mib'][name]:.0f} MiB above the inputs; "
+            f"no host waits inside fn; alone, a rank's sort_full of {n_local} hashes "
+            f"{res['ms'][f'hash sort a rank {name}']:.3f} ms and its final sort_key_value of "
+            f"{ranks * cap} rows {res['ms'][f'final kv sort a rank {name}']:.3f} ms ({ranks} "
+            f"of each: {100 * ranks * res['ms'][f'hash sort a rank {name}'] / res['ms'][name]:.1f}"
+            f"% and {100 * ranks * res['ms'][f'final kv sort a rank {name}'] / res['ms'][name]:.1f}%)")
+        if ranks == P:
+            log_profile(card, f"hash aggregate count of {n} keys on {P} ranks", lambda: fn(*args))
+        del fn, args
+        torch.cuda.empty_cache()
+    mesh4 = key_mesh([dev] * P)
+    gk, ga = pp.hash_aggregate_distributed(keys, op="count", mesh=mesh4)
+    o = np.argsort(gk)
+    check_groups("aggregate path host entry", [gk[o]], [ga[o]], uniq, counts)
+    res["ms"][f"host entry count {P}r"] = timers.time_wall(
+        lambda: pp.hash_aggregate_distributed(keys, op="count", mesh=mesh4), iters=3)
+    del gk, ga, o
+
+    # -- yardsticks on the same keys -------------------------------------------
+    res["ms"]["torch.unique"] = timers.time_cuda(
+        lambda: torch.unique(keys.view(torch.int32), sorted=True, return_counts=True))
+    if torch.unique(keys.view(torch.int32)).numel() != uniq.size:
+        fail("aggregate path: torch.unique counts other groups than np.unique")
+    gu, gc, gn = run("group_aggregate count", lambda: table.group_aggregate(keys, None, "count"),
+                     full_sort(n, 1))
+    g = int(gn)
+    if g != uniq.size or not (np.array_equal(gu[:g].cpu().numpy(), uniq) and np.array_equal(
+            gc[:g].cpu().numpy().astype(np.int64), counts)):
+        fail("aggregate path: group_aggregate count differs from np.unique")
+    del gu, gc
+    res["ms"]["group_aggregate count"] = timers.time_cuda(
+        lambda: table.group_aggregate(keys, None, "count"))
+    log(f"time [{card}]: beside it, the same {n} keys: torch.unique(sorted=True, "
+        f"return_counts=True) {res['ms']['torch.unique']:.3f} ms; the single-device "
+        f"group_aggregate count {res['ms']['group_aggregate count']:.3f} ms (launches "
+        f"{res['launches']['group_aggregate count']}); the host entry on {P} ranks "
+        f"{res['ms'][f'host entry count {P}r']:.3f} ms (host clock, median of 3, ending in "
+        f"its copy to the host)")
+    del ones, valid
+    torch.cuda.empty_cache()
+
+    # -- value ops, a predicate and key_order at 16Mi on four ranks ------------
+    nv = N_AGG_VALUES
+    kv_np, kv = keys_np[:nv], keys[:nv]
+    del keys_np, uniq, counts
+    order = stable_order_u32(kv_np)
+    starts = run_starts(kv_np[order])
+    u = kv_np[order][starts]
+    c = np.diff(np.append(starts, nv))
+    rng = np.random.default_rng(12)
+    f_np = rng.random(nv, dtype=np.float32)
+    u_np = rng.integers(0, 1 << 32, nv, dtype=np.uint64).astype(np.uint32)
+    f, uv = torch.from_numpy(f_np).to(dev), torch.from_numpy(u_np).to(dev)
+    value_launches = {"binning": 2 * kv_sort * P}  # the local and the final kv sort
+
+    def at(gk: np.ndarray) -> np.ndarray:
+        idx = np.minimum(np.searchsorted(u, gk), u.size - 1)
+        if gk.size != u.size or not np.array_equal(u[idx], gk) or np.unique(idx).size != u.size:
+            fail(f"aggregate path: group keys at {nv} differ from np.unique")
+        return idx
+
+    name = f"sum f32 {P}r"
+    gk, ga = run(name, lambda: pp.hash_aggregate_distributed(kv, f, op="sum", mesh=mesh4),
+                 value_launches)
+    want = np.add.reduceat(f_np[order].astype(np.float64), starts)[at(gk)]
+    rel = float(np.max(np.abs(ga.astype(np.float64) - want) / np.abs(want)))
+    again = pp.hash_aggregate_distributed(kv, f, op="sum", mesh=mesh4)
+    if rel > 1e-5 or not (np.array_equal(again[0], gk) and np.array_equal(
+            again[1].view(np.uint32), ga.view(np.uint32))):
+        fail(f"aggregate path {name}: relative error {rel} against float64 (limit 1e-5), or "
+             f"two calls gave different bytes")
+    res["f32_sum_max_rel_err"] = rel
+    res["ms"][name] = timers.time_wall(
+        lambda: pp.hash_aggregate_distributed(kv, f, op="sum", mesh=mesh4), iters=3)
+    name = f"max u32 {P}r"
+    gk, ga = run(name, lambda: pp.hash_aggregate_distributed(kv, uv, op="max", mesh=mesh4),
+                 value_launches)
+    if not np.array_equal(ga, np.maximum.reduceat(u_np[order], starts)[at(gk)]):
+        fail(f"aggregate path {name} differs from numpy")
+    res["ms"][name] = timers.time_wall(
+        lambda: pp.hash_aggregate_distributed(kv, uv, op="max", mesh=mesh4), iters=3)
+    name = f"count even keys {P}r"
+    gk, ga = run(name, lambda: pp.hash_aggregate_distributed(
+        kv, op="count", mesh=mesh4, predicate=lambda k: (k & 1) == 0),
+        {**full_sort(nv // P, P), "binning": kv_sort * P})
+    even, o = u % 2 == 0, np.argsort(gk)
+    check_groups(f"aggregate path {name}", [gk[o]], [ga[o]], u[even], c[even])
+    name = f"count key_order {P}r"
+    device_order = u.size >= pp.KEY_ORDER_DEVICE_MIN
+    gk, ga = run(name, lambda: pp.hash_aggregate_distributed(kv, op="count", mesh=mesh4,
+                                                             key_order=True),
+                 {**full_sort(nv // P, P), "binning": kv_sort * (P + device_order)})
+    if not (np.array_equal(gk, u) and np.array_equal(ga.astype(np.int64), c)):
+        fail(f"aggregate path {name} differs from np.unique")
+    del gk, ga, again, f, uv, kv, order, starts
+    log(f"aggregate path: on {P} ranks, {nv} keys ({u.size} groups): float32 sum within "
+        f"{rel:.3g} of float64 (limit 1e-5), the same bytes on two calls; uint32 max exact; "
+        f"count of the even keys exact; key_order=True equal to np.unique ("
+        f"{'sort_key_value on the card' if device_order else 'np.argsort'}); host entry "
+        f"{res['ms'][f'sum f32 {P}r']:.3f} / {res['ms'][f'max u32 {P}r']:.3f} ms (sum / max)")
+
+    # -- the selftest's aggregate: shards of <= 2^14 keys (B3) ------------------
+    zk = keygen.generate_zipf_keys(N_AGG_TINY, alpha=1.3, seed=2)
+    gk, ga = run("count tiny 1r", lambda: pp.hash_aggregate_distributed(
+        zk, op="count", mesh=key_mesh([dev])), {**full_sort(N_AGG_TINY, 1), "binning": kv_sort})
+    zu, zc = np.unique(zk, return_counts=True)
+    check_groups("aggregate path count tiny 1r", [gk], [ga], zu, zc)
+
+    # -- the key_order crossover --------------------------------------------------
+    rng = np.random.default_rng(13)
+    res["key_order_ms"] = {}
+    for m in KEY_ORDER_SIZES:
+        k_np = rng.permutation(np.unique(rng.integers(0, 1 << 32, 2 * m, dtype=np.uint64)
+                                         .astype(np.uint32))[:m])
+        k = torch.from_numpy(k_np).to(dev)
+        a = torch.arange(m, dtype=torch.int32, device=dev).view(torch.uint32)
+        for route in (pp._key_order_host, pp._key_order_device):
+            sk, sa = route(k, a)
+            if not (np.array_equal(sk, np.sort(k_np)) and np.array_equal(
+                    k_np[sa.astype(np.int64)], sk)):
+                fail(f"aggregate path: {route.__name__} of {m} keys is not np.sort's order")
+        res["key_order_ms"][m] = {
+            "host": timers.time_wall(lambda: pp._key_order_host(k, a), warmup=2, iters=10),
+            "device": timers.time_wall(lambda: pp._key_order_device(k, a), warmup=2, iters=10)}
+    faster = [m for m in KEY_ORDER_SIZES if all(
+        res["key_order_ms"][q]["device"] <= res["key_order_ms"][q]["host"]
+        for q in KEY_ORDER_SIZES if q >= m)]
+    res["key_order_crossover"] = faster[0] if faster else None
+    log(f"time [{card}]: key_order over m distinct groups, np.argsort on the host / "
+        f"sort_key_value on the card, each ending on the host (host clock, median of 10): " +
+        "; ".join(f"2^{m.bit_length() - 1} {t['host']:.3f} / {t['device']:.3f} ms"
+                  for m, t in res["key_order_ms"].items()) +
+        f"; the card from {res['key_order_crossover']} groups (KEY_ORDER_DEVICE_MIN is "
+        f"{pp.KEY_ORDER_DEVICE_MIN})")
+    torch.cuda.empty_cache()
+
+    # -- the CLI selftest on the card, as a child process ------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpu_radix_sort_tpu_torch", "selftest", "--n", "100000"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.splitlines()
+    if proc.returncode or not lines or lines[-1] != "selftest: OK":
+        fail(f"selftest --n 100000 exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    res["selftest_s"] = time.perf_counter() - t0
+    log(f"aggregate path: python -m gpu_radix_sort_tpu_torch selftest --n 100000 on the "
+        f"card: {sum(line.startswith('  PASS') for line in lines)} checks, every one PASS "
+        f"({res['selftest_s']:.1f} s)")
+    res.update(n=n, ranks=P, n_values=nv, n_tiny=N_AGG_TINY)
+    log(f"aggregate path: every phase exact ({time.perf_counter() - t_path:.1f} s)")
+    return res
+
+
 def log_profile(card: str, what: str, fn, top: int = 8) -> None:
     """Profile ``fn`` (device_profile) and log its device time a call, its
     idle share and the ``top`` kernels that took most."""
@@ -1710,6 +2020,7 @@ def main() -> int:
     card = card_line()
     log(card)
     zipf_pool, zipf_keys = start_zipf_keys(N_PART)
+    agg_inputs = zipf_pool.submit(aggregate_inputs, N_AGG)
 
     t0 = time.perf_counter()
     ptxas = start_ptxas_report()
@@ -2159,7 +2470,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     keep: dict = {}
     kv = kv_table_path(dev, card, part, part_np, zipf_keys, keep)
-    zipf_pool.shutdown()
     t0 = time.perf_counter()
     want = np.sort(part_np)
     log(f"np.sort of the {N_PART} keys in {time.perf_counter() - t0:.1f} s (the oracle "
@@ -2169,13 +2479,16 @@ def main() -> int:
     sample = sample_path(dev, card, part, part_np, want, keep)
     del part, want, keep
     torch.cuda.empty_cache()
+    aggregate = aggregate_path(dev, card, agg_inputs)
+    zipf_pool.shutdown()
+    del agg_inputs
+    torch.cuda.empty_cache()
     storage = storage_path(dev, card, part_np, stream)
     del part_np
     st_launches = storage["launches"]
-    sa_launches = sample["launches"]
 
-    def on_sample(kernel_name: str) -> dict:
-        return {k: v[kernel_name] for k, v in sa_launches.items() if kernel_name in v}
+    def on_path(res: dict, kernel_name: str) -> dict:
+        return {k: v[kernel_name] for k, v in res["launches"].items() if kernel_name in v}
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -2193,7 +2506,8 @@ def main() -> int:
                launches_mesh_one_rank=mesh["launches_one_rank"]["block_sort"],
                launches_storage={k: v["block_sort"] for k, v in st_launches.items()
                                  if "block_sort" in v},
-               launches_sample=on_sample("block_sort"),
+               launches_sample=on_path(sample, "block_sort"),
+               launches_hash_aggregate=on_path(aggregate, "block_sort"),
                **rank_info["block_sort_kernel"]),
         kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
                single_launches, err_single, ms_single, ms_single_plain, single_bound,
@@ -2203,7 +2517,8 @@ def main() -> int:
                counting_route_single_call_ms=ms_single_count_call,
                launches_storage={k: v["single_block_sort"] for k, v in st_launches.items()
                                  if "single_block_sort" in v},
-               launches_sample=on_sample("single_block_sort"),
+               launches_sample=on_path(sample, "single_block_sort"),
+               launches_hash_aggregate=on_path(aggregate, "single_block_sort"),
                **rank_info["single_block_sort_kernel<14>"]),
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
@@ -2213,7 +2528,8 @@ def main() -> int:
                launches_mesh_one_rank=mesh["launches_one_rank"]["merge_level"],
                launches_storage={k: v["merge_level"] for k, v in st_launches.items()
                                  if "merge_level" in v},
-               launches_sample=on_sample("merge_level"),
+               launches_sample=on_path(sample, "merge_level"),
+               launches_hash_aggregate=on_path(aggregate, "merge_level"),
                **rank_info["merge_level_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
@@ -2230,13 +2546,14 @@ def main() -> int:
                                       if "binning" in v},
                launches_storage={k: v["binning"] for k, v in st_launches.items()
                                  if "binning" in v},
-               launches_sample=on_sample("binning")),
+               launches_sample=on_path(sample, "binning"),
+               launches_hash_aggregate=on_path(aggregate, "binning")),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
-        "sample": sample, "storage": storage, "card": card}))
+        "sample": sample, "aggregate": aggregate, "storage": storage, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2289,6 +2606,8 @@ def all_cards_main() -> int:
     cards = card_lines()
     for line in cards:
         log(line)
+    pool = side_pool()
+    agg_inputs = pool.submit(aggregate_inputs, N_AGG)
     P = torch.cuda.device_count()
     t0 = time.perf_counter()
     build.load()
@@ -2296,7 +2615,8 @@ def all_cards_main() -> int:
     access = [[a == b or torch.cuda.can_device_access_peer(a, b) for b in range(P)]
               for a in range(P)]
     log(f"peer access (row may write column): {access}")
-    res = all_cards_path([torch.device("cuda", i) for i in range(P)], cards[0])
+    res = all_cards_path([torch.device("cuda", i) for i in range(P)], cards[0], agg_inputs)
+    pool.shutdown()
     print(json.dumps({"all_cards": P, "peer_access": access, **res, "cards": cards}))
     log(f"chip_smoke --all-cards: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
@@ -2305,15 +2625,17 @@ def all_cards_main() -> int:
     return 0
 
 
-def all_cards_path(devs: list, card: str) -> dict:
+def all_cards_path(devs: list, card: str, agg_inputs) -> dict:
     """The checks and times of ``--all-cards`` over the ranks ``devs``, one
-    a card; returns the results for the JSON line."""
+    a card (``agg_inputs``, a future of :func:`aggregate_inputs`); returns
+    the results for the JSON line."""
     import gpu_radix_sort_tpu_torch as port
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.parallel import distributed as dist
+    from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
     from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
     from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
     from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
@@ -2451,6 +2773,46 @@ def all_cards_path(devs: list, card: str) -> dict:
         f"a group_sort_send round, overlapped / serial: {P} cards "
         f"{res['b7_round_cards_ms']:.3f} / {res['b7_serial_cards_ms']:.3f} ms, one card "
         f"{res['b7_round_one_card_ms']:.3f} / {res['b7_serial_one_card_ms']:.3f} ms")
+    del shards_cards, shards_one, part
+
+    # -- the hash aggregate count of 256Mi Zipf(1.2) keys across the cards ------
+    keys_np, uniq, counts = agg_inputs.result()
+    n_agg = keys_np.size
+    keys = torch.from_numpy(keys_np).to(devs[0])
+    n_agg_local = n_agg // P
+    expect = {"segment_copy": 0, "group_sort_send": 0, "block_sort": P,
+              "merge_level": P * ((n_agg_local - 1) // bs.TILE).bit_length(),
+              "binning": P * 2 * (32 // bn.PASS_WIDTH)}
+    for where, m in (("cards", mesh), ("one_card", one_card)):
+        fn, _ = pp.build_hash_aggregate(m, n_agg_local, op="count")
+        args = (shard(keys, m), shard(torch.ones(n_agg, dtype=torch.float32, device=devs[0]), m),
+                shard(torch.ones(n_agg, dtype=torch.bool, device=devs[0]), m))
+        if where == "cards":
+            for mod in counters.values():
+                mod.launches = 0
+            gk, ga, ng, overflow = fn(*args)
+            sync()
+            got = {name: mod.launches for name, mod in counters.items()}
+            launches["hash aggregate count"] = got
+            if got != expect:
+                fail(f"hash aggregate across cards launches {got}, expected {expect}")
+            if int(overflow):
+                fail(f"hash aggregate across cards: overflow {int(overflow)}")
+            sizes = [int(g) for g in ng]
+            check_groups(f"hash aggregate count across {P} cards",
+                         [k[:c].cpu().numpy() for k, c in zip(gk, sizes)],
+                         [a[:c].cpu().numpy() for a, c in zip(ga, sizes)], uniq, counts)
+            del gk, ga, ng
+            res["hash_aggregate_host_syncs"] = len(host_syncs(lambda: fn(*args)))
+        res[f"hash_aggregate_{where}_ms"] = synced_ms(lambda: fn(*args), devs)
+        del fn, args
+    log(f"time [{card}]: hash aggregate count of {n_agg} Zipf(1.2) keys, {P} ranks, exact "
+        f"against np.unique, overflow 0, launches {launches['hash aggregate count']}: {P} "
+        f"cards {res['hash_aggregate_cards_ms']:.3f} ms; one card "
+        f"{res['hash_aggregate_one_card_ms']:.3f} ms (host clock through a synchronise of "
+        f"every card, median of 10); {res['hash_aggregate_host_syncs']} host "
+        f"synchronisations in a call")
+    res["n_aggregate"] = n_agg
     return res
 
 
@@ -2502,7 +2864,31 @@ def sample_main() -> int:
     return 0
 
 
+def aggregate_main() -> int:
+    """``--aggregate``: the kernels' build and the hash-aggregate path alone
+    (its inputs and oracles made beside the build)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    pool = side_pool()
+    inputs = pool.submit(aggregate_inputs, N_AGG)
+    build.load()
+    res = aggregate_path(torch.device("cuda", 0), card, inputs)
+    pool.shutdown()
+    print(json.dumps({"aggregate": res}))
+    log(f"chip_smoke --aggregate: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main,
-             ("--sample",): sample_main}
+             ("--sample",): sample_main, ("--aggregate",): aggregate_main}
     sys.exit(mains.get(tuple(sys.argv[1:]), main)())

@@ -5,8 +5,9 @@ the device of the tensor they are given.  On a CUDA tensor the sorts go
 through kernels written by hand for Hopper (``csrc/``, built with nvcc at
 first use); on a CPU tensor through those kernels' plain PyTorch versions.
 The mesh sorts -- LSD and sample sort -- run over a list of devices held by
-one process (``parallel/``); the table operators (hash partition, filter, group
-aggregate) are in ``ops/table.py``; the storage plane -- DistribArrays
+one process (``parallel/``), and so does the distributed hash aggregate
+(``parallel/pipeline.py``); the table operators (hash partition, filter,
+group aggregate) are in ``ops/table.py``; the storage plane -- DistribArrays
 (``data/``) and the storage round loop with in-process and subprocess
 workers, checkpoint and resume (``parallel/storage_sort.py``,
 ``parallel/serverless.py``) -- runs the reference's distributed sort.  This
@@ -16,6 +17,7 @@ package imports neither jax nor the JAX package.
 from .models.pipelines import (
     DistributedSortPipeline,
     FullSortPipeline,
+    HashAggregatePipeline,
     PartialSortPipeline,
 )
 from .ops.bits import extract_digits
@@ -37,6 +39,8 @@ from .ops.radix_sort import (
 from .parallel import (
     WorkerPool,
     build_distributed_sort,
+    build_hash_aggregate,
+    hash_aggregate_distributed,
     key_mesh,
     make_local_worker,
     resume_sort_distrib,
@@ -90,6 +94,8 @@ __all__ = [
     "sort_key_value_distributed",
     "sort_key_value_distributed_64",
     "build_distributed_sort",
+    "build_hash_aggregate",
+    "hash_aggregate_distributed",
     "key_mesh",
     "sort_distrib_from_raw",
     "sort_distrib_from_raw_kv",
@@ -103,5 +109,6 @@ __all__ = [
     "FullSortPipeline",
     "PartialSortPipeline",
     "DistributedSortPipeline",
+    "HashAggregatePipeline",
     "__version__",
 ]

@@ -1,1 +1,8 @@
 """Execution pipelines."""
+
+from .pipelines import (  # noqa: F401
+    DistributedSortPipeline,
+    FullSortPipeline,
+    HashAggregatePipeline,
+    PartialSortPipeline,
+)

@@ -7,6 +7,8 @@
   * :class:`DistributedSortPipeline` — the mesh LSD sort over sharded keys
     (reference: SortDistribFromRaw, distrib.go:183-248), or the sample sort
     (PSRS).
+  * :class:`HashAggregatePipeline` — the distributed hash-partition ->
+    filter -> aggregate over Zipf keys (BASELINE.json config 5).
 
 ``build()`` returns the step function and its example inputs, so scripts
 and benchmarks share one definition.
@@ -19,9 +21,9 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import radix_sort
-from ..parallel import distributed, sample_sort
+from ..parallel import distributed, pipeline, sample_sort
 from ..parallel.mesh import key_mesh, shard
-from ..utils.keygen import Pcg32
+from ..utils.keygen import Pcg32, generate_zipf_keys
 
 
 @dataclass
@@ -56,6 +58,31 @@ class PartialSortPipeline:
 
         example = torch.from_numpy(Pcg32().fill(self.n)).to(self.device)
         return step, (example,)
+
+
+@dataclass
+class HashAggregatePipeline:
+    """Skew-aware distributed group-by (BASELINE.json config 5) over a mesh
+    (default: every CUDA device): hash partition with sampled splitters,
+    local combine and global aggregate of ``n_local`` Zipf keys a rank
+    (seed 9) with float32 ones as values, every row valid."""
+
+    n_local: int = 1 << 14
+    op: str = "count"
+    zipf_alpha: float = 1.2
+    capacity_factor: float = 2.0
+    mesh: object = None
+
+    def build(self):
+        mesh = self.mesh or key_mesh()
+        n = self.n_local * mesh.size
+        fn, _ = pipeline.build_hash_aggregate(
+            mesh, self.n_local, op=self.op, capacity_factor=self.capacity_factor
+        )
+        keys = torch.from_numpy(generate_zipf_keys(n, alpha=self.zipf_alpha, seed=9))
+        vals = torch.ones(n, dtype=torch.float32)
+        valid = torch.ones(n, dtype=torch.bool)
+        return fn, (shard(keys, mesh), shard(vals, mesh), shard(valid, mesh))
 
 
 @dataclass

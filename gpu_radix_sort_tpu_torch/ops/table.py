@@ -45,6 +45,9 @@ from .boundaries import digit_counts_sorted
 _HASH_MULT = 2654435769
 _HASH_MULT2 = 0x2C1B3C6D
 _MASK32 = 0xFFFFFFFF
+# their inverses mod 2^32, for undoing the hash
+_HASH_MULT_INV = 0x144CBC89
+_HASH_MULT2_INV = 0x64EA2D65
 
 VALID_AGG_OPS = ("sum", "count", "min", "max")
 
@@ -78,6 +81,22 @@ def hash_u32(keys) -> torch.Tensor:
     """Deterministic uint32 -> uint32 hash (bijective), bit-exact with the
     JAX package's uint32 arithmetic."""
     return from_int64(_hash64(as_tensor(keys)))
+
+
+def _unxorshift(x: torch.Tensor, s: int) -> torch.Tensor:
+    """The y with y ^ (y >> s) == x, for int64 x in [0, 2^32)."""
+    y, shift = x, s
+    while shift < 32:
+        y = y ^ (x >> shift)
+        shift += s
+    return y
+
+
+def _unhash_u32(hashes: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`hash_u32`: the uint32 keys whose hashes are
+    ``hashes`` (uint32), so that a sort of hashes alone gives back its keys."""
+    x = _mul32(_unxorshift(to_int64(_u32(hashes)), 12), _HASH_MULT2_INV)
+    return from_int64(_mul32(_unxorshift(x, 15), _HASH_MULT_INV))
 
 
 def hash_partition_ids(keys, nparts: int) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Distributed sorts (port of ``gpu_radix_sort_tpu/parallel``): the mesh LSD
 sort over a single-controller list of devices, with the collective
 exchanges and the ragged exchanges of kernels B6 and B7; the mesh sample
-sort (PSRS) for 32-bit, key-value and 64-bit keys; and the storage plane
+sort (PSRS) for 32-bit, key-value and 64-bit keys; the distributed hash
+aggregate (hash-partition -> filter -> aggregate); and the storage plane
 -- the round loop over DistribArrays with in-process and subprocess
 workers, checkpoint and resume."""
 
 from .bucket_reader import BucketReader, ReadOrder
 from .distributed import OverflowError_, build_distributed_sort, sort_distributed
 from .mesh import KEY_AXIS, KeyMesh, key_mesh
+from .pipeline import build_hash_aggregate, hash_aggregate_distributed
 from .sample_sort import (
     build_sample_sort,
     build_sample_sort_kv,
@@ -52,6 +54,8 @@ __all__ = [
     "sort_distributed_sample",
     "sort_key_value_distributed",
     "sort_key_value_distributed_64",
+    "build_hash_aggregate",
+    "hash_aggregate_distributed",
     "key_mesh",
     "KeyMesh",
     "KEY_AXIS",
