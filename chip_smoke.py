@@ -91,7 +91,23 @@
    fused loop at 2^14 keys (B3); kv rows with 64-byte payloads at 32Mi
    (numpy's stable order); uint64 keys at 256Mi (the fused 64-bit loop)
    and at 64Mi with checkpoints; and times the copies of 2 GiB to and from
-   the card.
+   the card;
+14. drives the benchmark harness (bench_path): ``python -m
+   gpu_radix_sort_tpu_torch bench --suite full --json`` as a child process,
+   whose 22 records must be the JAX suite's rows in order, each with a
+   median above 0, overflow 0 where it is counted and the storage rows'
+   rounds (written to chiprun_out/bench_full.jsonl and printed as the
+   harness prints them); ``analyze`` of the file alone and against itself
+   (every row 1.00x); the native PCG32 fill of 256Mi keys against the numpy
+   fill (the same words, both timed); one call of every row that runs on
+   the card, at the suite's size, with the launch counts set to 0 just
+   before and read just after (full_sort_u32 B1 and B2, the partial sorts
+   B5 1/2/4 times, kv_sort_u32_p8B, kv_digit_sort_w4 and the 64-byte kv
+   sort B5, hash_aggregate_count_zipf B1, B2 and B5, each exactly; the
+   64-bit rows and the kv and 64-bit storage rows none, as JAX's run no
+   Pallas kernel; the other mesh and storage rows some kernel); and the
+   harness's full_sort_u32 median at 256Mi within 15% of time_cuda of the
+   same sort in the same process.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -123,6 +139,10 @@ making its oracles itself.
 
 builds the kernels and runs only the hash-aggregate path (12. above) on one
 card, making its inputs and oracles beside the build.
+
+    python3 chip_smoke.py --bench
+
+builds the kernels and runs only the harness step (14. above) on one card.
 """
 
 from __future__ import annotations
@@ -1985,6 +2005,218 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
     return res
 
 
+# The names of the JAX package's run_benchmarks("full") rows, in order
+# (gpu_radix_sort_tpu/bench/harness.py:611-653): the port's suite must give
+# the same rows.
+BENCH_FULL_ROWS = (
+    "keygen_pcg32", "full_sort_u32", "partial_sort_u32_w4", "partial_sort_u32_w8",
+    "partial_sort_u32_w16", "partial_sort_u32_w8_refcontract",
+    "partial_sort_u32_w16_refcontract", "kv_sort_u32_p8B", "kv_digit_sort_w4",
+    "kv_sort_u32_p64B", "mesh_lsd_w8_alltoall", "mesh_sample_sort", "mesh_sort64",
+    "mesh_sort64_lsd", "mesh_kv_sample_p64B", "hash_aggregate_count_zipf", "full_sort_u64",
+    "storage_mem_local_w8", "storage_device_local_w8", "storage_kv_mem_p64B_w8",
+    "storage_u64_mem_w8", "storage_u64_device_w8",
+)
+N_BENCH = 1 << 28  # the full suite's n1 on the card: 256Mi keys
+BENCH_MESH_CAP = 8 << 20  # the full suite's mesh rows: at most 8Mi keys a rank
+BENCH_STEP_S = 200  # the step's share of the script's 1200 s
+TIMER_TOLERANCE = 0.15  # the harness's median against CUDA events of the same call
+
+
+def bench_path(dev, card: str) -> dict:
+    """Step 14, the harness: ``bench --suite full --json`` as a child process
+    on the card, its 22 records checked (names and order, times, overflow,
+    the storage rows' rounds) and written to chiprun_out/; ``analyze`` of
+    the file alone and against itself; then, in this process, the native
+    key fill against numpy's, the launches of one call of every row that
+    runs on the card, and the harness's timer against CUDA events of the
+    same sort.  Returns the results for the JSON line."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from gpu_radix_sort_tpu_torch import cli
+    from gpu_radix_sort_tpu_torch.bench import harness
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh
+    from gpu_radix_sort_tpu_torch.utils import keygen, timers
+
+    t_step = time.perf_counter()
+    res = {"card": card, "launches": {}}
+    torch.cuda.empty_cache()
+
+    # -- the full suite in a child process, as a user runs it ----------------
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "bench_full.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gpu_radix_sort_tpu_torch", "bench", "--suite", "full",
+         "--json"], capture_output=True, text=True, timeout=900)
+    res["suite_s"] = time.perf_counter() - t0
+    path.write_text(proc.stdout)
+    if proc.returncode:
+        fail(f"bench --suite full exited {proc.returncode}:\n{proc.stderr[-6000:]}")
+    records = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    names = tuple(r["name"] for r in records)
+    if names != BENCH_FULL_ROWS:
+        fail(f"bench --suite full rows {names}, expected {BENCH_FULL_ROWS}")
+    log(f"bench: `python -m gpu_radix_sort_tpu_torch bench --suite full --json` in "
+        f"{res['suite_s']:.1f} s, {len(records)} records in {path}")
+    for r in records:
+        if not r["median_s"] > 0:
+            fail(f"bench {r['name']}: median_s {r['median_s']}")
+        if r["extra"].get("overflow", 0) != 0:
+            fail(f"bench {r['name']}: overflow {r['extra']['overflow']}")
+        if r["name"].startswith("storage_"):
+            bits = 64 if r["name"].startswith("storage_u64_") else 32
+            rounds = bits // int(r["name"].rsplit("_w", 1)[1]) * r["reps"]
+            got = r["extra"]["phases"].get("counter:rounds")
+            if got != rounds:
+                fail(f"bench {r['name']}: counter:rounds {got}, expected {rounds}")
+        log(f"bench [{card}]: {harness.BenchRecord(**r).line()}")
+    res["records"] = records
+
+    # -- analyze, alone and against itself -----------------------------------
+    for files in ([str(path)], [str(path), str(path)]):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main(["analyze", *files])
+        if rc:
+            fail(f"analyze {files} exited {rc}")
+        rows = text.getvalue().splitlines()
+        if len(files) == 2 and (len(rows) != 1 + len(records)
+                                or not all(row.endswith(" 1.00x") for row in rows[1:])):
+            fail(f"analyze of the file against itself:\n{text.getvalue()}")
+        log(f"analyze {' '.join(files)}:\n{text.getvalue()}")
+
+    # -- the native key fill against its plain numpy version -----------------
+    t0 = time.perf_counter()
+    native_keys = keygen.Pcg32().fill(N_BENCH)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain_keys = keygen.Pcg32().fill_plain(N_BENCH)
+    plain_s = time.perf_counter() - t0
+    if not np.array_equal(native_keys, plain_keys):
+        fail(f"the native PCG32 fill of {N_BENCH} keys differs from the numpy fill")
+    del native_keys, plain_keys
+    res["fill_s"] = {"native": native_s, "numpy": plain_s, "cpus": os.cpu_count()}
+    log(f"time [host, {os.cpu_count()} CPUs]: Pcg32().fill of {N_BENCH} keys {native_s:.3f} s "
+        f"(native, threads), the numpy fill {plain_s:.3f} s; the same words")
+
+    # -- one call of each row that runs on the card, counted ----------------
+    counters = {"block_sort": bs, "merge_level": ms, "single_block_sort": sb,
+                "digit_sort": ds, "binning": bn}
+    none = dict.fromkeys(counters, 0)
+
+    def full_sort(m: int, ranks: int) -> dict:
+        if m <= sb.MAX_N:
+            return {"single_block_sort": ranks}
+        return {"block_sort": ranks, "merge_level": ranks * ((m - 1) // bs.TILE).bit_length()}
+
+    def one_call(fn, args, **_):
+        """The harness's timer, replaced: one call of the row's function."""
+        return 1.0, 1.0, 0.0, fn(*args)
+
+    P = key_mesh().size
+    n_local = min(N_BENCH // P, BENCH_MESH_CAP)
+    kv_sort = 2 * (32 // bn.PASS_WIDTH)  # keys and one column a pass
+
+    def storage(bench, n: int, backend: str):
+        cfg = harness.SortConfig(backend=backend, device=str(dev))  # 2 workers
+        return lambda: bench(n, cfg, warmup=False)  # one call: one rep, no warmup
+
+    # row -> (one call of it, its launches: exact, or None for "some kernel")
+    rows = {
+        "full_sort_u32": (lambda: harness.bench_full_sort(N_BENCH, device=dev),
+                          full_sort(N_BENCH, 1)),
+        **{f"partial_sort_u32_w{w}": (
+            lambda w=w: harness.bench_partial_sort(N_BENCH, width=w, device=dev),
+            {"binning": -(-w // bn.PASS_WIDTH)}) for w in (4, 8, 16)},
+        "partial_sort_u32_w8_refcontract": (
+            lambda: harness.bench_partial_sort(N_BENCH, width=8, stable=False, device=dev),
+            full_sort(N_BENCH, 1)),
+        "kv_sort_u32_p8B": (
+            lambda: harness.bench_key_value_sort(N_BENCH // 2, payload_bytes=8, device=dev),
+            {"binning": kv_sort}),
+        "kv_digit_sort_w4": (
+            lambda: harness.bench_kv_digit_sort(N_BENCH, width=4, device=dev),
+            {"binning": 2}),
+        "kv_sort_u32_p64B": (
+            lambda: harness.bench_key_value_sort(N_BENCH // 16, payload_bytes=64, device=dev),
+            {"binning": kv_sort}),
+        "mesh_lsd_w8_alltoall": (lambda: harness.bench_mesh_lsd(n_local, device=dev), None),
+        "mesh_sample_sort": (lambda: harness.bench_mesh_sample(n_local, device=dev), None),
+        # one int64 torch.sort of the encoded words, as JAX runs lax.sort
+        "mesh_sort64": (lambda: harness.bench_mesh_sort64(n_local // 2, device=dev), {}),
+        "mesh_sort64_lsd": (
+            lambda: harness.bench_mesh_sort64_lsd(n_local // 2, device=dev), None),
+        "mesh_kv_sample_p64B": (
+            lambda: harness.bench_mesh_kv_sample(max(n_local // 4, 1 << 12), device=dev),
+            None),
+        "hash_aggregate_count_zipf": (
+            lambda: harness.bench_hash_aggregate(n_local, device=dev),
+            {**full_sort(n_local, P), "binning": kv_sort * P}),
+        "full_sort_u64": (lambda: harness.bench_full_sort_u64(16 << 20, device=dev), {}),
+        "storage_mem_local_w8": (storage(harness.bench_storage_distrib, 1 << 20, "mem"),
+                                 None),
+        "storage_device_local_w8": (
+            storage(harness.bench_storage_distrib, 8 << 20, "device"), None),
+        # the kv and 64-bit storage rows order digits by torch.sort (the
+        # fused 64-bit loop by int64 torch.sort), as JAX's by XLA sorts
+        "storage_kv_mem_p64B_w8": (storage(harness.bench_storage_kv, 1 << 19, "mem"), {}),
+        "storage_u64_mem_w8": (storage(harness.bench_storage_u64, 1 << 19, "mem"), {}),
+        "storage_u64_device_w8": (storage(harness.bench_storage_u64, 4 << 20, "device"),
+                                  {}),
+    }
+    timer = harness.device_time
+    harness.device_time = one_call
+    try:
+        for name, (row, expect) in rows.items():
+            torch.cuda.synchronize()
+            for mod in counters.values():
+                mod.launches = 0
+            rec = row()
+            torch.cuda.synchronize()
+            got = {k: mod.launches for k, mod in counters.items()}
+            if rec.name != name:
+                fail(f"bench row {rec.name}, expected {name}")
+            if (got != {**none, **expect}) if expect is not None else not any(got.values()):
+                fail(f"bench row {name}: launches {got}, expected "
+                     f"{'some kernel' if expect is None else {**none, **expect}}")
+            res["launches"][name] = {k: v for k, v in got.items() if v}
+            log(f"bench row {name}: one call launches {res['launches'][name]}")
+    finally:
+        harness.device_time = timer
+
+    # -- the harness's timer against CUDA events of the same sort ------------
+    rec = harness.bench_full_sort(N_BENCH, reps=3, device=dev)
+    keys = torch.from_numpy(keygen.Pcg32().fill(N_BENCH)).to(dev)
+    events_ms = timers.time_cuda(lambda: rs.sort_full(keys))
+    del keys
+    harness_ms = rec.median_s * 1e3
+    child_ms = records[BENCH_FULL_ROWS.index("full_sort_u32")]["median_s"] * 1e3
+    res["timer_check"] = {"harness_ms": harness_ms, "time_cuda_ms": events_ms,
+                          "suite_child_ms": child_ms}
+    log(f"time [{card}]: full_sort_u32 of {N_BENCH} keys: the harness's median "
+        f"{harness_ms:.3f} ms, time_cuda of the same sort {events_ms:.3f} ms "
+        f"({harness_ms / events_ms:.3f}x), the suite's child process {child_ms:.3f} ms")
+    if abs(harness_ms / events_ms - 1) > TIMER_TOLERANCE:
+        fail(f"the harness's full_sort_u32 median {harness_ms:.3f} ms is not within "
+             f"{TIMER_TOLERANCE:.0%} of time_cuda's {events_ms:.3f} ms")
+    res["step_s"] = time.perf_counter() - t_step
+    log(f"bench step: {res['step_s']:.1f} s (its share of the script: {BENCH_STEP_S} s)")
+    if res["step_s"] > BENCH_STEP_S:
+        log(f"bench step: over its {BENCH_STEP_S} s share by "
+            f"{res['step_s'] - BENCH_STEP_S:.1f} s")
+    return res
+
+
 def log_profile(card: str, what: str, fn, top: int = 8) -> None:
     """Profile ``fn`` (device_profile) and log its device time a call, its
     idle share and the ``top`` kernels that took most."""
@@ -2486,6 +2718,9 @@ def main() -> int:
     storage = storage_path(dev, card, part_np, stream)
     del part_np
     st_launches = storage["launches"]
+    torch.cuda.empty_cache()
+    bench = bench_path(dev, card)
+    del bench["records"]  # in chiprun_out/bench_full.jsonl and printed above
 
     def on_path(res: dict, kernel_name: str) -> dict:
         return {k: v[kernel_name] for k, v in res["launches"].items() if kernel_name in v}
@@ -2508,6 +2743,7 @@ def main() -> int:
                                  if "block_sort" in v},
                launches_sample=on_path(sample, "block_sort"),
                launches_hash_aggregate=on_path(aggregate, "block_sort"),
+               launches_bench=on_path(bench, "block_sort"),
                **rank_info["block_sort_kernel"]),
         kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
                single_launches, err_single, ms_single, ms_single_plain, single_bound,
@@ -2530,6 +2766,7 @@ def main() -> int:
                                  if "merge_level" in v},
                launches_sample=on_path(sample, "merge_level"),
                launches_hash_aggregate=on_path(aggregate, "merge_level"),
+               launches_bench=on_path(bench, "merge_level"),
                **rank_info["merge_level_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
@@ -2547,13 +2784,15 @@ def main() -> int:
                launches_storage={k: v["binning"] for k, v in st_launches.items()
                                  if "binning" in v},
                launches_sample=on_path(sample, "binning"),
-               launches_hash_aggregate=on_path(aggregate, "binning")),
+               launches_hash_aggregate=on_path(aggregate, "binning"),
+               launches_bench=on_path(bench, "binning")),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
-        "sample": sample, "aggregate": aggregate, "storage": storage, "card": card}))
+        "sample": sample, "aggregate": aggregate, "storage": storage, "bench": bench,
+        "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2888,7 +3127,29 @@ def aggregate_main() -> int:
     return 0
 
 
+def bench_main() -> int:
+    """``--bench``: the kernels' build and the harness step (14.) alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    build.load()
+    res = bench_path(torch.device("cuda", 0), card)
+    del res["records"]
+    print(json.dumps({"bench": res}))
+    log(f"chip_smoke --bench: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
     mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main,
-             ("--sample",): sample_main, ("--aggregate",): aggregate_main}
+             ("--sample",): sample_main, ("--aggregate",): aggregate_main,
+             ("--bench",): bench_main}
     sys.exit(mains.get(tuple(sys.argv[1:]), main)())

@@ -1,8 +1,10 @@
-"""Command-line entry point (ported subcommands: gen, sort --mode
-single|mesh|sample|storage, selftest, worker).
+"""Command-line entry point (the JAX package's subcommands: gen, sort --mode
+single|mesh|sample|storage, bench, analyze, selftest, worker).
 
   gen       write the deterministic PCG32 key stream to a raw uint32 file
   sort      sort keys from a raw uint32 file (or generated ones)
+  bench     run the benchmark suites (bench/harness.py), text or JSON lines
+  analyze   cost stacks of one bench JSON file, or two files compared
   selftest  drive every path end to end, each exact against a numpy oracle
   worker    serve one storage-round event from stdin (the subprocess worker)
 
@@ -14,7 +16,8 @@ environment (utils/config.py) when not given.  ``--mode mesh`` and
 ``--mode sample`` (the LSD and the sample sort) run over every CUDA device,
 or one CPU rank with ``--device cpu``; so do the mesh paths of
 ``selftest``.  Every mode runs on the CUDA device unless ``--device cpu``
-is given.
+is given; so does ``bench`` (its mesh rows over every CUDA device, or the
+harness's CPU ranks).
 Run as ``python -m gpu_radix_sort_tpu_torch``.
 """
 
@@ -257,6 +260,20 @@ def _cmd_selftest(args) -> int:
     return 1 if failures else 0
 
 
+def _cmd_bench(args) -> int:
+    from .bench.harness import report, run_benchmarks
+
+    records = run_benchmarks(args.suite, trace_dir=args.trace_dir, device=args.device)
+    print(report(records, as_json=args.json))
+    return 0
+
+
+def _cmd_analyze(args) -> int:
+    from .bench.analyze import main as analyze_main
+
+    return analyze_main(args.files)
+
+
 def _cmd_worker(_args) -> int:
     from .parallel.worker_main import main as worker_main
 
@@ -294,6 +311,18 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default=None, help="cuda (default) or cpu")
     s.add_argument("--verify", action="store_true")
     s.set_defaults(fn=_cmd_sort)
+
+    b = sub.add_parser("bench", help="run benchmark suite")
+    b.add_argument("--suite", choices=["quick", "full", "scaling"], default="quick")
+    b.add_argument("--json", action="store_true")
+    b.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace here")
+    b.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    b.set_defaults(fn=_cmd_bench)
+
+    a = sub.add_parser("analyze", help="analyze/compare bench JSON records")
+    a.add_argument("files", nargs="+", help="1 file: cost stacks; 2: compare")
+    a.set_defaults(fn=_cmd_analyze)
 
     t = sub.add_parser("selftest", help="end-to-end exactness checks")
     t.add_argument("--n", type=int, default=100_000)

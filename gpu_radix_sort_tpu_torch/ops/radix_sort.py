@@ -231,7 +231,9 @@ def _gather_rows(values: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     if values.numel() == 0:
         return values.new_empty((order.numel(), *values.shape[1:]))
     n = values.shape[0]
-    rows = raw_view(values.contiguous()).reshape(n, -1).view(torch.uint8)
+    # flat first: a contiguous tensor may carry any stride on a dimension of
+    # size 1 (torch.from_numpy(a[:, None]) has 0), which a view to bytes refuses
+    rows = raw_view(values.contiguous()).reshape(-1).view(torch.uint8).reshape(n, -1)
     nbytes = rows.shape[1]
     dtype = next(d for w, d in _WORDS if nbytes % w == 0)
     words = rows.view(dtype)

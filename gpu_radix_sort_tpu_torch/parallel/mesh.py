@@ -71,12 +71,13 @@ def axis_size(mesh: KeyMesh, axis: str = KEY_AXIS) -> int:
 
 
 def shard(x: torch.Tensor, mesh: KeyMesh) -> list[torch.Tensor]:
-    """Split a 1-D tensor whose length is a multiple of the mesh size into
-    equal shards, shard r on rank r's device."""
+    """Split a tensor whose leading axis is a multiple of the mesh size into
+    equal shards along it (keys, or payload rows), shard r on rank r's
+    device."""
     P = mesh.size
-    if x.dim() != 1 or x.numel() % P:
+    if x.dim() == 0 or x.shape[0] % P:
         raise ValueError(f"cannot split shape {tuple(x.shape)} into {P} equal shards")
-    n_local = x.numel() // P
+    n_local = x.shape[0] // P
     return [
         x[r * n_local:(r + 1) * n_local].to(dev) for r, dev in enumerate(mesh.devices)
     ]

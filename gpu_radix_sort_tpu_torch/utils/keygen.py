@@ -1,13 +1,18 @@
 """Deterministic key generation, bit-exact with the reference generator.
 
-Port of ``gpu_radix_sort_tpu/utils/keygen.py`` (numpy only): the reference
-fills input arrays with a PCG32 (XSH-RR) stream from a fixed initial state
+Port of ``gpu_radix_sort_tpu/utils/keygen.py``: the reference fills input
+arrays with a PCG32 (XSH-RR) stream from a fixed initial state
 (libsort/utils.cu:63-79, ``populateInput``), whose state persists across
 calls in a process.  The same PCG32 state gives the same words here as in
 the JAX package, so both packages sort the same keys.
 
-The fill is vectorized with LCG jump-ahead: the state recurrence
-``s' = s*A + C (mod 2^64)`` admits closed-form doubling.
+:meth:`Pcg32.fill` runs the native C++ fill (``native/sortcore.cpp``
+through :mod:`.native`, threads over LCG jump-ahead), as the JAX package
+does; it raises if the library cannot be built.  :meth:`Pcg32.fill_plain`
+is its plain version, vectorized in numpy with the same jump-ahead (the
+state recurrence ``s' = s*A + C (mod 2^64)`` admits closed-form doubling),
+and :meth:`Pcg32.fill_reference_loop` the direct transcription both are
+tested against.
 
 :func:`generate_zipf_keys` and :func:`generate_payloads` (skewed keys and
 row payloads for the key-value and aggregate paths) draw from numpy's
@@ -17,6 +22,8 @@ row payloads for the key-value and aggregate paths) draw from numpy's
 from __future__ import annotations
 
 import numpy as np
+
+from . import native
 
 # PCG32 constants (reference: libsort/utils.cu:67-69)
 PCG32_INIT_STATE = np.uint64(0x4D595DF4D0F33173)
@@ -64,6 +71,11 @@ class Pcg32:
 
     def fill(self, n: int) -> np.ndarray:
         """Next ``n`` uint32 words of the stream (advances state by n)."""
+        out, self.state = native.pcg32_fill(self.state, n)
+        return out
+
+    def fill_plain(self, n: int) -> np.ndarray:
+        """:meth:`fill` in numpy: the same words and the same state after."""
         if n < 0:
             raise ValueError(f"n must be >= 0, got {n}")
         states = _fill_states(self.state, n)
@@ -71,6 +83,23 @@ class Pcg32:
             with np.errstate(over="ignore"):
                 self.state = states[-1] * _MULT + _INC
         return _pcg32_output(states)
+
+    def fill_reference_loop(self, n: int) -> np.ndarray:
+        """Slow direct transcription of the reference's loop, the check of
+        the other two fills in tests."""
+        out = np.empty(n, dtype=np.uint32)
+        s = int(self.state)
+        mult, inc = int(_MULT), int(_INC)
+        mask64 = (1 << 64) - 1
+        for i in range(n):
+            x = s
+            count = x >> 59
+            s = (x * mult + inc) & mask64
+            x ^= x >> 18
+            x32 = (x >> 27) & 0xFFFFFFFF
+            out[i] = ((x32 >> count) | (x32 << ((-count) & 31))) & 0xFFFFFFFF
+        self.state = np.uint64(s)
+        return out
 
 
 # Process-global stream, mirroring the reference's C `static` state

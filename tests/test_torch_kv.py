@@ -50,11 +50,13 @@ def _payload(form: str, n: int) -> np.ndarray:
         "rows7": lambda: generate_payloads(n, payload_bytes=7),
         "i16x3x2": lambda: (np.arange(6 * n) % 30011).astype(np.int16).reshape(n, 3, 2),
         "empty": lambda: np.zeros((n, 0), np.uint8),
+        # a (n, 1) view: torch.from_numpy gives its last axis stride 0
+        "col1": lambda: np.arange(n, dtype=np.uint32)[:, None],
     }[form]()
 
 
 PAYLOADS = ["u32", "i32", "f32", "u16", "u8", "i64", "f64", "lanes2", "lanes6",
-            "rows8", "rows64", "rows7", "i16x3x2", "empty"]
+            "rows8", "rows64", "rows7", "i16x3x2", "empty", "col1"]
 NO_X64 = ("i64", "f64")  # JAX without 64-bit mode turns these into 4-byte types
 
 

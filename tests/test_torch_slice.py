@@ -289,7 +289,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "data/interface.py", "data/helpers.py", "data/mem.py", "data/file.py",
         "data/device.py", "parallel/bucket_reader.py", "parallel/storage_sort.py",
         "parallel/serverless.py", "parallel/worker_main.py",
-        "parallel/sample_sort.py", "parallel/pipeline.py")} <= checked
+        "parallel/sample_sort.py", "parallel/pipeline.py", "bench/harness.py",
+        "bench/analyze.py", "utils/native.py")} <= checked
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]
