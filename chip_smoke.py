@@ -79,7 +79,17 @@
    uint32 max, a predicate and key_order=True on four ranks of 16Mi keys;
    the selftest's 12 500-key aggregate (B3); the key_order crossover; and
    ``python -m gpu_radix_sort_tpu_torch selftest --n 100000`` as a child
-   process, which must pass;
+   process, which must pass; then the multi-process mesh (multihost_path):
+   one child process over NCCL holding four ranks of cuda:0, then two
+   child processes of two ranks over gloo, staged through host memory,
+   each driving the LSD sort (alltoall, w8, capacity 1.5), PSRS "sort" and
+   "merge" of the same 256Mi keys and the count aggregate of the Zipf(1.2)
+   keys through their build functions, with the launch counts set to 0
+   just before and read just after, exact against np.sort and np.unique,
+   the torch.distributed calls counted (the same whatever the ranks a
+   process holds), no host wait inside the NCCL calls, times (CUDA events
+   beside the single-controller mesh of the same ranks and torch.sort;
+   host clock through barriers over gloo) and the bytes staged;
 13. drives the storage plane at the reference's distributed configuration
    (storage_path): sort_distrib_from_raw of 512Mi PCG32 keys at width 8
    over 2 workers, exact against one np.sort, with launch counts: sort_full
@@ -124,7 +134,16 @@ keys exactly through rdma, rdma_overlap and alltoall with launch counts,
 and times each sort, a B6 round and a B7 round (overlapped and serial)
 across the cards against the same work on as many ranks of cuda:0; and the
 same for the sample sort, both reassemblies, and the hash aggregate count of
-256Mi Zipf(1.2) keys.
+256Mi Zipf(1.2) keys; then four child processes over NCCL, one card each
+(pod_key_mesh()), run the LSD sort and PSRS at 256Mi and 1Gi keys in all
+and the count aggregate, exact, beside the single-controller mesh of the
+same cards.
+
+    python3 chip_smoke.py --multihost
+
+builds the kernels and runs only the multi-process phases of 12. on one
+card, making their oracles beside the build (``--multihost-child`` is the
+children's own entry, started with torchrun's variables).
 
     python3 chip_smoke.py --storage
 
@@ -149,6 +168,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -617,14 +637,14 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
     return res
 
 
-def side_pool():
-    """A pool of one process of its own for inputs and oracles made beside
+def side_pool(workers: int = 1):
+    """A pool of processes of its own for inputs and oracles made beside
     the run: numpy's Zipf draws take about a minute at 256Mi and hold the
     interpreter lock.  Shut it down after."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    return ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
 
 
 def start_zipf_keys(n: int):
@@ -2217,6 +2237,387 @@ def bench_path(dev, card: str) -> dict:
     return res
 
 
+# -- the multi-process mesh (parallel/multihost.py) --------------------------
+
+N_MULTIHOST = N_PART  # the four-rank rows' 256Mi PCG32 keys, 64Mi a rank
+N_MULTIHOST_CARDS = 1 << 30  # --all-cards: 256Mi a card, the reference's size a device
+MULTIHOST_RANKS = 4  # ranks a mesh of one card: four processes of one, two of two
+MULTIHOST_DIR = "_multihost_smoke"  # the children's oracles (listed in .gitignore)
+MULTIHOST_TIMEOUT_S = 420  # a phase's children, all told
+MULTIHOST_KERNELS = ("block_sort", "merge_level", "binning", "segment_copy", "group_sort_send")
+# every collective of torch.distributed, counted in the children (the podscale guard)
+COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce", "all_to_all",
+               "all_to_all_single", "barrier", "broadcast", "gather", "reduce",
+               "reduce_scatter", "reduce_scatter_tensor", "scatter", "send", "recv")
+
+
+def write_sorted_keys(n: int, path: str) -> str:
+    """np.sort of Pcg32().fill(n) saved to ``path`` (run in a
+    :func:`side_pool`): the children's oracle, read by memory map."""
+    from gpu_radix_sort_tpu_torch.utils import keygen
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.save(path, np.sort(keygen.Pcg32().fill(n)))
+    return path
+
+
+def multihost_files(root: str, agg=None, want: np.ndarray | None = None) -> dict:
+    """The children's oracles under ``root``: the Zipf(1.2) keys and their
+    np.unique (``agg``, a :func:`aggregate_inputs` result) and the sorted
+    256Mi keys (``want``, where the caller holds them)."""
+    os.makedirs(root, exist_ok=True)
+    files = {}
+    if want is not None:
+        files[want.size] = os.path.join(root, f"sorted_{want.size}.npy")
+        np.save(files[want.size], want)
+    if agg is not None:
+        for name, a in zip(("zipf", "uniq", "counts"), agg):
+            files[name] = os.path.join(root, f"{name}.npy")
+            np.save(files[name], a)
+    return files
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_children(spec: dict, world: int, local_ranks: list, what: str) -> list:
+    """Runs ``world`` processes of :func:`multihost_child` (process p on
+    cuda:local_ranks[p]) as torchrun would start them, and returns their
+    results; a child that fails or outlives MULTIHOST_TIMEOUT_S fails the
+    phase, and every child is stopped before this returns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    port = free_port()
+    procs = []
+    try:
+        for p in range(world):
+            env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(world), RANK=str(p), LOCAL_RANK=str(local_ranks[p]))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multihost-child",
+                 json.dumps(spec)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
+        with ThreadPoolExecutor(world) as pool:
+            futures = [pool.submit(p.communicate, timeout=MULTIHOST_TIMEOUT_S) for p in procs]
+            outs = [f.result() for f in futures]
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: a child outlived {MULTIHOST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for p, (proc, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("MULTIHOST_RESULT ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            fail(f"{what}: process {p} exited {proc.returncode}\n{stdout[-3000:]}\n"
+                 f"{stderr[-6000:]}")
+        results.append(json.loads(lines[0].split(" ", 1)[1]))
+    return results
+
+
+def barrier_ms(fn, dev, side, reps: int, warmup: int = 1) -> float:
+    """Median host-clock milliseconds of ``fn()`` across the processes: a
+    barrier, the call, a synchronise of this process's card, a barrier."""
+    import statistics
+
+    import torch.distributed as dist
+
+    samples = []
+    for i in range(warmup + reps):
+        dist.barrier(group=side)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        dist.barrier(group=side)
+        if i >= warmup:
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def multihost_child(spec: dict) -> int:
+    """One process of the multi-process mesh (``--multihost-child``): joins
+    the group that torchrun's variables name, holds ``spec["ranks"]`` ranks
+    of cuda:LOCAL_RANK, and for each size and path of ``spec`` drives the
+    path's build function once with the launch counts and the
+    torch.distributed calls counted, checks its ranks exactly against the
+    memory-mapped numpy oracles, and times it (CUDA events beside the
+    single-controller mesh of the same ranks and torch.sort where
+    ``spec["events"]``, else the host clock through barriers).  Prints one
+    MULTIHOST_RESULT line."""
+    import torch.distributed as dist
+
+    from gpu_radix_sort_tpu_torch.kernels import build
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.parallel import distributed as pd
+    from gpu_radix_sort_tpu_torch.parallel import mesh as pm
+    from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
+    from gpu_radix_sort_tpu_torch.parallel.multihost import initialize_distributed, pod_key_mesh
+    from gpu_radix_sort_tpu_torch.utils import keygen, timers
+
+    counters = dict(zip(MULTIHOST_KERNELS, (bs, ms, bn, rx, ov)))
+    initialize_distributed(backend=spec["backend"])
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    build.load()
+    mesh = pod_key_mesh([dev] * spec["ranks"])
+    W, L, P, first = mesh.processes, len(mesh.devices), mesh.size, mesh.first
+    side = dist.new_group(backend="gloo")  # barriers and checks beside the sorts
+    res = {"process": dist.get_rank(), "world": W, "ranks": L, "backend": spec["backend"],
+           "device": str(dev), "sizes": {}}
+
+    def local_shards(a) -> list:
+        m = a.shape[0] // P
+        return [torch.from_numpy(np.array(a[g * m:(g + 1) * m])).to(dev)
+                for g in range(first, first + L)]
+
+    def counted(call):
+        """(the result of one call, its launches, its torch.distributed calls,
+        its bytes staged through host memory)"""
+        calls = [0]
+        saved = {name: getattr(dist, name) for name in COLLECTIVES if hasattr(dist, name)}
+        for name, f in saved.items():
+            setattr(dist, name, lambda *a, _f=f, **k: (calls.__setitem__(0, calls[0] + 1),
+                                                      _f(*a, **k))[1])
+        for mod in counters.values():
+            mod.launches = 0
+        staged = pm.staged_bytes
+        try:
+            out = call()
+            torch.cuda.synchronize(dev)
+        finally:
+            for name, f in saved.items():
+                setattr(dist, name, f)
+        return (out, {k: m.launches for k, m in counters.items()}, calls[0],
+                pm.staged_bytes - staged)
+
+    def check_sorted(what, bufs, counts, want):
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        if starts[-1] != want.size:
+            fail(f"{what}: the ranks hold {starts[-1]} keys of {want.size}")
+        for i, b in enumerate(bufs):
+            g = first + i
+            got = b[:counts[g]].cpu().numpy()
+            if not np.array_equal(got, want[starts[g]:starts[g + 1]]):
+                fail(f"{what}: global rank {g} differs from np.sort")
+
+    def gathered_counts(counts) -> np.ndarray:
+        return pm.all_gather([c.view(1).to(torch.int64) for c in counts],
+                             mesh)[0].view(-1).cpu().numpy()
+
+    for n, paths in spec["sizes"]:
+        n_local = n // P
+        keys_np = keygen.Pcg32().fill(n)
+        shards = local_shards(keys_np)
+        del keys_np
+        want = np.load(spec["files"][str(n)], mmap_mode="r")
+        runs = {}
+        for path in paths:
+            if path == "lsd alltoall":
+                def build_fn(m, n_local=n_local):
+                    fn = pd.build_distributed_sort(m, n_local, width=8, exchange="alltoall",
+                                                   capacity_factor=1.5)
+                    return lambda: fn(shards)
+            elif path.startswith("sample"):
+                def build_fn(m, n_local=n_local, r=path.split()[1]):
+                    fn, _ = ss.build_sample_sort(m, n_local, capacity_factor=1.5, reassembly=r)
+                    return lambda: fn(shards)
+            else:
+                zipf = np.load(spec["files"]["zipf"], mmap_mode="r")
+                a_local = zipf.size // P
+                agg_args = (local_shards(zipf), [torch.ones(a_local, dtype=torch.float32,
+                                                            device=dev)] * L,
+                            [torch.ones(a_local, dtype=torch.bool, device=dev)] * L)
+
+                def build_fn(m, a_local=a_local, agg_args=agg_args):
+                    fn, _ = pp.build_hash_aggregate(m, a_local, op="count")
+                    return lambda: fn(*agg_args)
+            call = build_fn(mesh)
+            out, launches, calls, staged = counted(call)
+            what = f"{path}, {n} keys, {W} x {L} ranks over {spec['backend']}, process {first // L}"
+            if int(out[-1]) != 0:
+                fail(f"{what}: overflow {int(out[-1])}")
+            if path == "lsd alltoall":
+                check_sorted(what, out[0], np.full(P, n_local), want)
+            elif path.startswith("sample"):
+                check_sorted(what, out[0], gathered_counts(out[1]), want)
+            else:
+                uniq = np.load(spec["files"]["uniq"], mmap_mode="r")
+                counts = np.load(spec["files"]["counts"], mmap_mode="r")
+                gk, ga, ng = out[0], out[1], [int(c) for c in out[2]]
+                seen = np.zeros(uniq.size, np.int32)
+                for i, (k, a, c) in enumerate(zip(gk, ga, ng)):
+                    k, a = k[:c].cpu().numpy(), a[:c].cpu().numpy()
+                    idx = np.minimum(np.searchsorted(uniq, k), uniq.size - 1)
+                    if (c > 1 and not (k[1:] > k[:-1]).all()) or not (
+                            np.array_equal(uniq[idx], k)
+                            and np.array_equal(counts[idx], a.astype(np.int64))):
+                        fail(f"{what}: global rank {first + i}'s groups differ from np.unique")
+                    seen += np.bincount(idx, minlength=uniq.size).astype(np.int32)
+                seen = pm.psum([torch.from_numpy(seen).to(dev)], mesh).cpu().numpy()
+                if not (seen == 1).all():
+                    fail(f"{what}: {int((seen == 0).sum())} groups missing, "
+                         f"{int((seen > 1).sum())} repeated")
+            if launches["block_sort"] == 0 or launches["merge_level"] == 0 or (
+                    path == "aggregate count" and launches["binning"] == 0):
+                fail(f"{what}: a kernel of the path was not launched: {launches}")
+            del out
+            row = {"launches": launches, "collective_calls": calls, "staged_bytes": staged}
+            if spec["backend"] == "nccl":
+                syncs = host_syncs(call)
+                row["host_syncs"] = syncs
+                if syncs:
+                    fail(f"{what}: host waits inside the call: {syncs}")
+            if spec["events"]:
+                # W = 1: this process's ranks are the whole mesh, so the
+                # single-controller mesh of the same ranks takes the same shards
+                single = build_fn(pm.key_mesh([dev] * L))
+                _, row["single_launches"], _, _ = counted(single)
+                if row["single_launches"] != launches:
+                    fail(f"{what}: launches {launches}, the single-controller mesh's "
+                         f"{row['single_launches']}")
+                torch.cuda.reset_peak_memory_stats(dev)
+                row["ms"] = timers.time_cuda(call)
+                row["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+                row["single_ms"] = timers.time_cuda(single)
+                del single
+            else:
+                row["ms"] = barrier_ms(call, dev, side, spec["reps"])
+            del call
+            torch.cuda.empty_cache()
+            runs[path] = row
+        if spec["events"]:
+            joined = torch.cat(shards)
+            runs["torch.sort"] = {"ms": timers.time_cuda(
+                lambda: rs.sort_full(joined, strategy="torch"))}
+            del joined
+        res["sizes"][str(n)] = runs
+        del shards
+        torch.cuda.empty_cache()
+    dist.barrier(group=side)
+    dist.destroy_process_group()
+    print("MULTIHOST_RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def multihost_path(card: str, files: dict) -> dict:
+    """The multi-process mesh on one card: (1) one process over NCCL,
+    world size 1, holding four ranks of cuda:0, CUDA-event medians of 10
+    beside the single-controller key_mesh([cuda:0] * 4) and torch.sort of
+    the same keys; (2) two processes of two ranks of cuda:0 over gloo, their
+    collectives staged through host memory, host-clock medians of 3.  Each
+    path (the LSD sort, alltoall w8 at capacity 1.5; PSRS "sort" and
+    "merge"; the count aggregate of the 256Mi Zipf(1.2) keys) is exact
+    against numpy in every process, with its launches and its
+    torch.distributed calls counted, which must not grow with the ranks a
+    process holds.  Returns the results for the JSON line."""
+    paths = ["lsd alltoall", "sample sort", "sample merge", "aggregate count"]
+    base = {"files": {str(k): v for k, v in files.items()},
+            "sizes": [[N_MULTIHOST, paths]]}
+    res = {}
+    t0 = time.perf_counter()
+    (one,) = run_children(dict(base, backend="nccl", ranks=MULTIHOST_RANKS, events=True),
+                          1, [0], "multihost phase 1 (NCCL, one process)")
+    res["nccl_1x4"] = one["sizes"][str(N_MULTIHOST)]
+    res["nccl_1x4_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = run_children(dict(base, backend="gloo", ranks=MULTIHOST_RANKS // 2, events=False,
+                            reps=3), 2, [0, 0], "multihost phase 2 (gloo, two processes)")
+    res["gloo_2x2"] = two[0]["sizes"][str(N_MULTIHOST)]
+    res["gloo_2x2_s"] = time.perf_counter() - t0
+    for path in paths:
+        a, b = res["nccl_1x4"][path], res["gloo_2x2"][path]
+        total = {k: sum(r["sizes"][str(N_MULTIHOST)][path]["launches"][k] for r in two)
+                 for k in MULTIHOST_KERNELS}
+        calls = {r["sizes"][str(N_MULTIHOST)][path]["collective_calls"] for r in two}
+        if total != a["launches"] or calls != {a["collective_calls"]}:
+            fail(f"multihost {path}: two processes launch {total} with {calls} collective "
+                 f"calls, one process {a['launches']} with {a['collective_calls']}")
+        log(f"time [{card}]: multihost {path}, {N_MULTIHOST} keys on 4 ranks of cuda:0, exact: "
+            f"1 process x 4 ranks over NCCL {a['ms']:.3f} ms (CUDA events, median of 10; "
+            f"single-controller mesh {a['single_ms']:.3f} ms; peak {a['peak_mib']:.0f} MiB); "
+            f"2 processes x 2 ranks over gloo {b['ms']:.3f} ms (host clock, median of 3; "
+            f"{b['staged_bytes']} bytes staged through host memory a process); "
+            f"launches {a['launches']}; {a['collective_calls']} torch.distributed calls a "
+            f"process at 1 x 4 and 2 x 2; host waits inside the NCCL call: "
+            f"{len(a['host_syncs'])}")
+    log(f"time [{card}]: torch.sort (strategy='torch') of the same {N_MULTIHOST} keys "
+        f"{res['nccl_1x4']['torch.sort']['ms']:.3f} ms; multihost phases "
+        f"{res['nccl_1x4_s']:.1f} s + {res['gloo_2x2_s']:.1f} s")
+    return res
+
+
+def multihost_cards_path(devs: list, card: str, files: dict, single: dict) -> dict:
+    """``--all-cards``: four processes, one card each, over NCCL
+    (pod_key_mesh() in each), the LSD sort and PSRS at 256Mi and 1Gi keys in
+    all and the count aggregate of the 256Mi Zipf keys, exact, host-clock
+    medians of 10 through barriers, beside the single-controller mesh of the
+    same cards (``single``: its time and launches of each path at 256Mi from
+    :func:`all_cards_path`, which the processes' launches must add up to;
+    at 1Gi its times measured here)."""
+    from gpu_radix_sort_tpu_torch.parallel import distributed as dist
+    from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
+    from gpu_radix_sort_tpu_torch.utils import keygen
+
+    P = len(devs)
+    sorts = ["lsd alltoall", "sample sort", "sample merge"]
+    # the single-controller mesh of the same cards at 1Gi
+    mesh = key_mesh(devs)
+    n_local = N_MULTIHOST_CARDS // P
+    shards = shard(torch.from_numpy(keygen.Pcg32().fill(N_MULTIHOST_CARDS)), mesh)
+    single_big = {
+        "lsd alltoall": dist.build_distributed_sort(mesh, n_local, width=8,
+                                                    exchange="alltoall", capacity_factor=1.5),
+        "sample sort": ss.build_sample_sort(mesh, n_local, capacity_factor=1.5)[0],
+        "sample merge": ss.build_sample_sort(mesh, n_local, capacity_factor=1.5,
+                                             reassembly="merge")[0],
+    }
+    single_big = {k: synced_ms(lambda fn=fn: fn(shards), devs) for k, fn in single_big.items()}
+    del shards
+    for d in devs:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    spec = {"backend": "nccl", "ranks": 1, "events": False, "reps": 10,
+            "files": {str(k): v for k, v in files.items()},
+            "sizes": [[N_MULTIHOST, sorts + ["aggregate count"]], [N_MULTIHOST_CARDS, sorts]]}
+    t0 = time.perf_counter()
+    results = run_children(spec, P, list(range(P)), f"multihost across {P} cards")
+    res = {"seconds": time.perf_counter() - t0, "processes": results[0]["sizes"],
+           "single_1Gi_ms": single_big}
+    for n, paths in spec["sizes"]:
+        for path in paths:
+            rows = [r["sizes"][str(n)][path] for r in results]
+            if len({r["collective_calls"] for r in rows}) != 1:
+                fail(f"multihost across cards {path}: collective calls differ by process")
+            total = {k: sum(r["launches"][k] for r in rows) for k in MULTIHOST_KERNELS}
+            if n == N_MULTIHOST and total != single[path][1]:
+                fail(f"multihost across cards {path}: the processes launch {total}, the "
+                     f"single-controller mesh {single[path][1]}")
+            base = single[path][0] if n == N_MULTIHOST else single_big[path]
+            log(f"time [{card}]: multihost {path}, {n} keys, {P} processes x 1 card over NCCL, "
+                f"exact: {rows[0]['ms']:.3f} ms (host clock through barriers, median of 10); "
+                f"single-controller mesh of the {P} cards {base:.3f} ms; launches a process "
+                f"{[r['launches']['block_sort'] for r in rows]} block_sort, "
+                f"{[r['launches']['merge_level'] for r in rows]} merge_level, "
+                f"{[r['launches']['binning'] for r in rows]} binning; "
+                f"{rows[0]['collective_calls']} torch.distributed calls; host waits "
+                f"{sum(len(r['host_syncs']) for r in rows)}")
+    return res
+
+
 def log_profile(card: str, what: str, fn, top: int = 8) -> None:
     """Profile ``fn`` (device_profile) and log its device time a call, its
     idle share and the ``top`` kernels that took most."""
@@ -2709,12 +3110,17 @@ def main() -> int:
     mesh = mesh_path(dev, rng, card, part, part_np, rank_info["segment_copy_kernel"],
                      rank_info["group_sort_send_kernel"], want)
     sample = sample_path(dev, card, part, part_np, want, keep)
+    mh_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), MULTIHOST_DIR)
+    mh_files = multihost_files(mh_root, want=want)
     del part, want, keep
     torch.cuda.empty_cache()
     aggregate = aggregate_path(dev, card, agg_inputs)
     zipf_pool.shutdown()
+    mh_files.update(multihost_files(mh_root, agg=agg_inputs.result()))
     del agg_inputs
     torch.cuda.empty_cache()
+    multihost = multihost_path(card, mh_files)
+    shutil.rmtree(mh_root, ignore_errors=True)
     storage = storage_path(dev, card, part_np, stream)
     del part_np
     st_launches = storage["launches"]
@@ -2724,6 +3130,10 @@ def main() -> int:
 
     def on_path(res: dict, kernel_name: str) -> dict:
         return {k: v[kernel_name] for k, v in res["launches"].items() if kernel_name in v}
+
+    def mh_launches(kernel_name: str) -> dict:  # one process of four ranks over NCCL
+        return {k: v["launches"][kernel_name] for k, v in multihost["nccl_1x4"].items()
+                if "launches" in v}
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -2744,6 +3154,7 @@ def main() -> int:
                launches_sample=on_path(sample, "block_sort"),
                launches_hash_aggregate=on_path(aggregate, "block_sort"),
                launches_bench=on_path(bench, "block_sort"),
+               launches_multihost=mh_launches("block_sort"),
                **rank_info["block_sort_kernel"]),
         kernel("single_block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:180",
                single_launches, err_single, ms_single, ms_single_plain, single_bound,
@@ -2767,6 +3178,7 @@ def main() -> int:
                launches_sample=on_path(sample, "merge_level"),
                launches_hash_aggregate=on_path(aggregate, "merge_level"),
                launches_bench=on_path(bench, "merge_level"),
+               launches_multihost=mh_launches("merge_level"),
                **rank_info["merge_level_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
@@ -2785,14 +3197,15 @@ def main() -> int:
                                  if "binning" in v},
                launches_sample=on_path(sample, "binning"),
                launches_hash_aggregate=on_path(aggregate, "binning"),
-               launches_bench=on_path(bench, "binning")),
+               launches_bench=on_path(bench, "binning"),
+               launches_multihost=mh_launches("binning")),
         *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
-        "sample": sample, "aggregate": aggregate, "storage": storage, "bench": bench,
-        "card": card}))
+        "sample": sample, "aggregate": aggregate, "multihost": multihost, "storage": storage,
+        "bench": bench, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2847,6 +3260,10 @@ def all_cards_main() -> int:
         log(line)
     pool = side_pool()
     agg_inputs = pool.submit(aggregate_inputs, N_AGG)
+    mh_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), MULTIHOST_DIR)
+    sort_pool = side_pool(2)
+    sorted_keys = {n: sort_pool.submit(write_sorted_keys, n, os.path.join(mh_root, f"sorted_{n}.npy"))
+                   for n in (N_MULTIHOST, N_MULTIHOST_CARDS)}
     P = torch.cuda.device_count()
     t0 = time.perf_counter()
     build.load()
@@ -2854,8 +3271,18 @@ def all_cards_main() -> int:
     access = [[a == b or torch.cuda.can_device_access_peer(a, b) for b in range(P)]
               for a in range(P)]
     log(f"peer access (row may write column): {access}")
-    res = all_cards_path([torch.device("cuda", i) for i in range(P)], cards[0], agg_inputs)
+    devs = [torch.device("cuda", i) for i in range(P)]
+    res = all_cards_path(devs, cards[0], agg_inputs)
+    files = {n: f.result() for n, f in sorted_keys.items()}
+    files.update(multihost_files(mh_root, agg=agg_inputs.result()))
     pool.shutdown()
+    sort_pool.shutdown()
+    single = {path: (res[f"{key}_cards_ms"], res["launches"][launches]) for path, key, launches in (
+        ("lsd alltoall", "alltoall", "alltoall"), ("sample sort", "sample_sort", "sample sort"),
+        ("sample merge", "sample_merge", "sample merge"),
+        ("aggregate count", "hash_aggregate", "hash aggregate count"))}
+    res["multihost"] = multihost_cards_path(devs, cards[0], files, single)
+    shutil.rmtree(mh_root, ignore_errors=True)
     print(json.dumps({"all_cards": P, "peer_access": access, **res, "cards": cards}))
     log(f"chip_smoke --all-cards: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
@@ -3148,8 +3575,40 @@ def bench_main() -> int:
     return 0
 
 
+def multihost_main() -> int:
+    """``--multihost``: the kernels' build and the multi-process phases
+    alone, their oracles made beside the build."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), MULTIHOST_DIR)
+    pool = side_pool(2)
+    sorted_keys = pool.submit(write_sorted_keys, N_MULTIHOST,
+                              os.path.join(root, f"sorted_{N_MULTIHOST}.npy"))
+    agg = pool.submit(aggregate_inputs, N_AGG)
+    build.load()
+    files = {N_MULTIHOST: sorted_keys.result(), **multihost_files(root, agg=agg.result())}
+    pool.shutdown()
+    log(f"multihost: oracles ready in {time.perf_counter() - t_start:.1f} s")
+    res = multihost_path(card, files)
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"multihost": res}))
+    log(f"chip_smoke --multihost: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-child"]:
+        sys.exit(multihost_child(json.loads(sys.argv[2])))
     mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main,
              ("--sample",): sample_main, ("--aggregate",): aggregate_main,
-             ("--bench",): bench_main}
+             ("--bench",): bench_main, ("--multihost",): multihost_main}
     sys.exit(mains.get(tuple(sys.argv[1:]), main)())

@@ -1,6 +1,7 @@
 """Distributed sorts (port of ``gpu_radix_sort_tpu/parallel``): the mesh LSD
-sort over a single-controller list of devices, with the collective
-exchanges and the ragged exchanges of kernels B6 and B7; the mesh sample
+sort over a single-controller list of devices or a process group
+(``multihost.py``), with the collective exchanges and, on a single
+controller, the ragged exchanges of kernels B6 and B7; the mesh sample
 sort (PSRS) for 32-bit, key-value and 64-bit keys; the distributed hash
 aggregate (hash-partition -> filter -> aggregate); and the storage plane
 -- the round loop over DistribArrays with in-process and subprocess
@@ -8,7 +9,7 @@ workers, checkpoint and resume."""
 
 from .bucket_reader import BucketReader, ReadOrder
 from .distributed import OverflowError_, build_distributed_sort, sort_distributed
-from .mesh import KEY_AXIS, KeyMesh, key_mesh
+from .mesh import KEY_AXIS, KeyMesh, host_chip_mesh, key_mesh
 from .pipeline import build_hash_aggregate, hash_aggregate_distributed
 from .sample_sort import (
     build_sample_sort,
@@ -57,6 +58,7 @@ __all__ = [
     "build_hash_aggregate",
     "hash_aggregate_distributed",
     "key_mesh",
+    "host_chip_mesh",
     "KeyMesh",
     "KEY_AXIS",
     "BucketReader",

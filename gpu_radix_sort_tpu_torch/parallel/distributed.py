@@ -3,8 +3,9 @@
 Port of ``gpu_radix_sort_tpu/parallel/distributed.py``: the reference's
 bulk-synchronous rounds (benchmark/pkg/sort/distrib.go:90-248, ``nstep =
 32/width``, each a local partial sort and a bucket repartition) over the
-single-controller mesh of :mod:`.mesh`.  Round invariant: after round r the
-global array (shard-major) is sorted by bits [0, (r+1)*width).
+mesh of :mod:`.mesh`, a single controller or a process group.  Round
+invariant: after round r the global array (shard-major) is sorted by bits
+[0, (r+1)*width).
 
 Two loops, as in JAX:
   * unfused (:func:`_round_fn` each round): the stable local digit sort,
@@ -18,7 +19,8 @@ Two loops, as in JAX:
 Exchanges: ``gather``, ``alltoall`` and ``overflow`` (:mod:`.exchange`);
 ``rdma`` (B6, :mod:`.rdma_exchange`) and ``rdma_overlap`` (B7,
 :mod:`.rdma_overlap`), whose receive buffers are exact, so ``rdma`` takes
-any n_local (no 128-lane rounding).  Strategies are the port's own:
+any n_local (no 128-lane rounding); the last two store into peers' memory
+and run on a single controller only.  Strategies are the port's own:
 ``"auto"`` runs the kernels, ``"torch"`` runs ``torch.sort`` (JAX's
 ``"xla"``); JAX's ``"pallas_radix"`` has no counterpart.
 """
@@ -33,23 +35,24 @@ from ..ops.radix_sort import _VALID as _VALID_STRATEGY
 from ..ops.radix_sort import sort_full
 from . import exchange as ex
 from . import rdma_overlap as ov
-from .mesh import KEY_AXIS, KeyMesh, key_mesh, psum, shard, unshard
+from .mesh import KEY_AXIS, KeyMesh, key_mesh, psum, shard, single_controller, unshard
 from .rdma_exchange import exchange_round_rdma, exchange_round_rdma_raw
 
 _VALID_EXCHANGE = (
     "auto", "alltoall", "overflow", "gather", "rdma", "rdma_overlap"
 )
 _FUSABLE = ("alltoall", "overflow", "rdma")
+_PEER_MEMORY = ("rdma", "rdma_overlap")
 
 
-def _round_fn(shards, *, offset, width, exchange, capacity, strategy):
+def _round_fn(shards, *, offset, width, exchange, capacity, strategy, mesh=None):
     """One unfused round: returns (new shards, overflowed per rank)."""
     if exchange == "gather":
-        return ex.exchange_round_gather(shards, offset, width, strategy=strategy)
+        return ex.exchange_round_gather(shards, offset, width, strategy=strategy, mesh=mesh)
     if exchange == "overflow":
         c0, c_ov = capacity
         return ex.exchange_round_alltoall_overflow(
-            shards, offset, width, c0, c_ov, strategy=strategy
+            shards, offset, width, c0, c_ov, strategy=strategy, mesh=mesh
         )
     if exchange == "rdma":
         return exchange_round_rdma(shards, offset, width, strategy=strategy)
@@ -58,22 +61,22 @@ def _round_fn(shards, *, offset, width, exchange, capacity, strategy):
             shards, offset, width, tile=capacity, strategy=strategy
         )
     return ex.exchange_round_alltoall(
-        shards, offset, width, capacity, strategy=strategy
+        shards, offset, width, capacity, strategy=strategy, mesh=mesh
     )
 
 
-def _exchange_raw(sorted_shards, *, offset, width, exchange, capacity):
+def _exchange_raw(sorted_shards, *, offset, width, exchange, capacity, mesh=None):
     """Round k's exchange of already digit-sorted shards without the
     reassembly: lists (tags, flat, overflowed), see
     ``exchange.exchange_round_alltoall_raw``."""
     if exchange == "overflow":
         c0, c_ov = capacity
         return ex.exchange_round_alltoall_overflow_raw(
-            sorted_shards, offset, width, c0, c_ov
+            sorted_shards, offset, width, c0, c_ov, mesh
         )
     if exchange == "rdma":
         return exchange_round_rdma_raw(sorted_shards, offset, width)
-    return ex.exchange_round_alltoall_raw(sorted_shards, offset, width, capacity)
+    return ex.exchange_round_alltoall_raw(sorted_shards, offset, width, capacity, mesh)
 
 
 def _unslack(tags: torch.Tensor, z: torch.Tensor, width: int) -> torch.Tensor:
@@ -82,7 +85,7 @@ def _unslack(tags: torch.Tensor, z: torch.Tensor, width: int) -> torch.Tensor:
     return torch.where(slack, -1, z.view(torch.int32)).view(KEY_DTYPE)
 
 
-def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps):
+def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps, mesh=None):
     """LSD loop where every round is ONE keys-only full sort of a
     bit-rotated key: round k's shard order (digit_k, bits [0, k*width),
     high bits) is the plain ascending order of rotr(x, (k+1)*width), a pure
@@ -106,7 +109,7 @@ def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps):
             ]
         tags, flat, ovf = _exchange_raw(
             sorted_shards, offset=step * width, width=width,
-            exchange=exchange, capacity=capacity,
+            exchange=exchange, capacity=capacity, mesh=mesh,
         )
         overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
     # the final round's rotation is the identity: a plain value sort reassembles
@@ -114,7 +117,7 @@ def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps):
         sort_full(_unslack(t, f, width), strategy=strategy)[:n_local]
         for t, f in zip(tags, flat)
     ]
-    return out, psum(overflow)
+    return out, psum(overflow, mesh)
 
 
 def build_distributed_sort(
@@ -132,11 +135,14 @@ def build_distributed_sort(
     """The distributed full sort of P shards of ``n_local`` keys.
 
     Returns ``fn(shards) -> (sorted shards, overflow count)``: ``shards`` a
-    list of P 1-D uint32 tensors, shard r on ``mesh.devices[r]``, the count
-    an int32 scalar on the first rank's device (ranks x rounds that
-    overflowed a capacity).  ``fuse_rounds`` (default: on for alltoall,
-    overflow and rdma) runs :func:`_fused_sort_shard`; the output is
-    bit-identical either way."""
+    list of this process's 1-D uint32 shards, shard r on
+    ``mesh.devices[r]`` (all P on a single controller), the count an int
+    scalar on the first rank's device (ranks x rounds that overflowed a
+    capacity, summed over the whole mesh).  ``fuse_rounds`` (default: on
+    for alltoall, overflow and rdma) runs :func:`_fused_sort_shard`; the
+    output is bit-identical either way.  ``"rdma"`` and ``"rdma_overlap"``
+    store into the peers' buffers and need a single controller: on a
+    process-group mesh they raise NotImplementedError."""
     if KEY_BITS % width or width > 16:
         # width=32 would need 2^32 digit-count bins and a sentinel digit
         # beyond uint32 -- use sort_full on one device.
@@ -145,6 +151,12 @@ def build_distributed_sort(
         raise ValueError(f"exchange must be one of {_VALID_EXCHANGE}")
     if strategy is not None and strategy not in _VALID_STRATEGY:
         raise ValueError(f"strategy must be one of {_VALID_STRATEGY}, got {strategy!r}")
+    if mesh.group is not None and exchange in _PEER_MEMORY:
+        raise NotImplementedError(
+            f"exchange={exchange!r} stores into peer memory, which a process-group mesh "
+            "would reach through CUDA IPC: not ported yet (ROADMAP A6, B6 and B7 across "
+            "processes); use 'alltoall', 'overflow' or 'gather'"
+        )
     nchips = mesh.shape[axis]
     if exchange == "auto":
         # gather is exact and fastest for small shards; alltoall scales.
@@ -172,25 +184,25 @@ def build_distributed_sort(
 
     def fn(shards):
         shards = list(shards)
-        if len(shards) != nchips or any(
+        if len(shards) != len(mesh.devices) or any(
             s.numel() != n_local or s.device != d for s, d in zip(shards, mesh.devices)
         ):
             raise ValueError(
-                f"expected {nchips} shards of {n_local} keys on {mesh.devices}"
+                f"expected {len(mesh.devices)} shards of {n_local} keys on {mesh.devices}"
             )
         if fuse_rounds:
             return _fused_sort_shard(
                 shards, width=width, exchange=exchange, capacity=capacity,
-                strategy=strategy, nsteps=nsteps,
+                strategy=strategy, nsteps=nsteps, mesh=mesh,
             )
         overflow = [torch.zeros((), dtype=torch.int32, device=s.device) for s in shards]
         for step in range(nsteps):
             shards, ovf = _round_fn(
                 shards, offset=step * width, width=width, exchange=exchange,
-                capacity=capacity, strategy=strategy,
+                capacity=capacity, strategy=strategy, mesh=mesh,
             )
             overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
-        return shards, psum(overflow)
+        return shards, psum(overflow, mesh)
 
     return fn
 
@@ -226,7 +238,10 @@ def sort_distributed(
     Raises :class:`OverflowError_` if a capacity-bounded exchange overflowed
     (use a larger ``capacity_factor``, ``"gather"`` or ``"rdma"``); under
     ``"auto"`` it falls back to the exact ``"gather"`` exchange instead.
-    int32 / float32 keys go through the order-preserving uint32 codec."""
+    int32 / float32 keys go through the order-preserving uint32 codec.  On a
+    process-group mesh it raises: call :func:`build_distributed_sort`'s
+    function in every process."""
+    single_controller(mesh, "sort_distributed", "build_distributed_sort")
     keys = _as_keys(keys)
     if keys.dtype in (torch.int32, torch.float32):
         out = sort_distributed(

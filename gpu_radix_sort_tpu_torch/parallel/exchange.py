@@ -1,9 +1,12 @@
 """Bucket exchange: the all-to-all shuffle of one distributed radix round.
 
-Port of ``gpu_radix_sort_tpu/parallel/exchange.py`` onto the single-controller
-mesh of :mod:`.mesh` (a shard is a tensor on its rank's device; collectives
-are copies between devices).  The JAX package's core insight carries over:
-after a stable local digit sort, each element's global destination
+Port of ``gpu_radix_sort_tpu/parallel/exchange.py`` onto the mesh of
+:mod:`.mesh`: a shard is a tensor on its rank's device, and each function
+takes this process's shards and the mesh (None: the shards alone are a
+single-controller mesh), whose collectives are copies between devices or,
+on a process-group mesh, one ``torch.distributed`` call each.  The JAX
+package's core insight carries over: after a stable local digit sort, each
+element's global destination
 
     g = base[d] + off[my, d] + r
 
@@ -37,7 +40,7 @@ import torch
 
 from ..ops.boundaries import digit_counts_sorted
 from ..ops.radix_sort import sort_by_digits, sort_key_value_by_digits
-from .mesh import all_gather, all_to_all
+from .mesh import KeyMesh, all_gather, all_to_all, global_ranks
 
 PAD_KEY = -1  # 0xFFFFFFFF as int32
 
@@ -85,15 +88,17 @@ def _slice_counts(S: torch.Tensor, counts: torch.Tensor, bound) -> torch.Tensor:
     return torch.minimum(below, counts.to(torch.int64)).sum(-1)
 
 
-def _round_metadata_sorted(sorted_shards: list, offset: int, width: int):
-    """For each rank, from the all-gathered (P, D) count matrix: its send
-    slice bounds (P+1,), the counts it sends to each peer (P,) and the
+def _round_metadata_sorted(sorted_shards: list, offset: int, width: int,
+                           mesh: KeyMesh | None = None):
+    """For each local rank, from the all-gathered (P, D) count matrix: its
+    send slice bounds (P+1,), the counts it sends to each peer (P,) and the
     counts it receives from each (P,), int64 on its device."""
     n_local = sorted_shards[0].numel()
-    P = len(sorted_shards)
+    P, first = global_ranks(mesh, len(sorted_shards))
     counts = [digit_counts_sorted(s, offset, width) for s in sorted_shards]
     meta = []
-    for my, (c, all_counts) in enumerate(zip(counts, all_gather(counts))):
+    for i, (c, all_counts) in enumerate(zip(counts, all_gather(counts, mesh))):
+        my = first + i
         S_all = _run_starts_global(all_counts)
         bounds = torch.arange(P + 1, dtype=torch.int64, device=c.device) * n_local
         send_bounds = _slice_counts(S_all[my], c, bounds)
@@ -133,17 +138,17 @@ def _reassemble(tags: torch.Tensor, flat: torch.Tensor, n_local: int,
 
 
 def exchange_round_alltoall_raw(sorted_shards: list, offset: int, width: int,
-                                capacity: int):
+                                capacity: int, mesh: KeyMesh | None = None):
     """The all-to-all exchange without the reassembly sort: takes the
     digit-sorted shards, returns lists ``(tags, flat, overflowed)`` with one
-    entry a rank."""
-    meta = _round_metadata_sorted(sorted_shards, offset, width)
+    entry a local rank."""
+    meta = _round_metadata_sorted(sorted_shards, offset, width, mesh)
     blocks, overflowed = [], []
     for s, (send_bounds, send_count, _) in zip(sorted_shards, meta):
         overflowed.append(torch.any(send_count > capacity))
         blocks.append(send_windows(_padded(s, capacity), send_bounds[:-1], capacity))
     tags, flat = [], []
-    for recv, (_, _, recv_count) in zip(all_to_all(blocks), meta):
+    for recv, (_, _, recv_count) in zip(all_to_all(blocks, mesh), meta):
         k = torch.arange(capacity, device=recv.device)
         t, f = _tagged(recv, k[None, :] < recv_count[:, None], offset, width)
         tags.append(t)
@@ -152,25 +157,26 @@ def exchange_round_alltoall_raw(sorted_shards: list, offset: int, width: int,
 
 
 def exchange_round_alltoall(shards: list, offset: int, width: int, capacity: int,
-                            *, strategy: str | None = None):
+                            *, strategy: str | None = None, mesh: KeyMesh | None = None):
     """One distributed digit round: local stable digit sort, capacity-bounded
     all-to-all, stable reassembly.  Returns (new shards, overflowed per
     rank)."""
     sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
     tags, flat, overflowed = exchange_round_alltoall_raw(
-        sorted_shards, offset, width, capacity
+        sorted_shards, offset, width, capacity, mesh
     )
     n_local = shards[0].numel()
     return [_reassemble(t, f, n_local, width, strategy) for t, f in zip(tags, flat)], overflowed
 
 
 def exchange_round_alltoall_overflow_raw(sorted_shards: list, offset: int, width: int,
-                                         capacity0: int, capacity_ov: int):
+                                         capacity0: int, capacity_ov: int,
+                                         mesh: KeyMesh | None = None):
     """Two-pass exchange without the reassembly sort (the contract of
     :func:`exchange_round_alltoall_raw`): a main all-to-all at the even
     share plus an overflow all-to-all of each pair's excess; each source's
     main chunk then its overflow chunk keep the receive order (src, rank)."""
-    meta = _round_metadata_sorted(sorted_shards, offset, width)
+    meta = _round_metadata_sorted(sorted_shards, offset, width, mesh)
     main, over, overflowed = [], [], []
     for s, (send_bounds, send_count, _) in zip(sorted_shards, meta):
         send1 = torch.clamp(send_count, max=capacity0)
@@ -179,7 +185,7 @@ def exchange_round_alltoall_overflow_raw(sorted_shards: list, offset: int, width
         main.append(send_windows(padded, send_bounds[:-1], capacity0))
         over.append(send_windows(padded, send_bounds[:-1] + send1, capacity_ov))
     tags, flat = [], []
-    for r1, r2, (_, _, recv_count) in zip(all_to_all(main), all_to_all(over), meta):
+    for r1, r2, (_, _, recv_count) in zip(all_to_all(main, mesh), all_to_all(over, mesh), meta):
         recv1 = torch.clamp(recv_count, max=capacity0)
         k1 = torch.arange(capacity0, device=r1.device)
         k2 = torch.arange(capacity_ov, device=r1.device)
@@ -193,26 +199,28 @@ def exchange_round_alltoall_overflow_raw(sorted_shards: list, offset: int, width
 
 def exchange_round_alltoall_overflow(shards: list, offset: int, width: int,
                                      capacity0: int, capacity_ov: int, *,
-                                     strategy: str | None = None):
+                                     strategy: str | None = None,
+                                     mesh: KeyMesh | None = None):
     """One round through the two-pass exchange; a pair exceeding C0 + C_ov
     is reported as overflow."""
     sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
     tags, flat, overflowed = exchange_round_alltoall_overflow_raw(
-        sorted_shards, offset, width, capacity0, capacity_ov
+        sorted_shards, offset, width, capacity0, capacity_ov, mesh
     )
     n_local = shards[0].numel()
     return [_reassemble(t, f, n_local, width, strategy) for t, f in zip(tags, flat)], overflowed
 
 
 def exchange_round_gather(shards: list, offset: int, width: int, *,
-                          strategy: str | None = None):
+                          strategy: str | None = None, mesh: KeyMesh | None = None):
     """Exact all-gather exchange: each rank digit-sorts the gathered round
     and keeps its slice (ranks on one device share the sort)."""
     n_local = shards[0].numel()
+    _, first = global_ranks(mesh, len(shards))
     by_device: dict[torch.device, torch.Tensor] = {}
     out = []
-    for my, gathered in enumerate(all_gather([s.view(torch.int32) for s in shards])):
-        dev = gathered.device
+    for i, gathered in enumerate(all_gather([s.view(torch.int32) for s in shards], mesh)):
+        my, dev = first + i, gathered.device
         if dev not in by_device:
             by_device[dev] = sort_by_digits(gathered.reshape(-1).view(torch.uint32),
                                             offset, width, strategy=strategy)

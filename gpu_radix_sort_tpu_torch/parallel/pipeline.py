@@ -1,8 +1,8 @@
 """Distributed hash-partition -> filter -> aggregate (skew-aware group-by).
 
-Port of ``gpu_radix_sort_tpu/parallel/pipeline.py`` onto the
-single-controller mesh of :mod:`.mesh` (BASELINE.json config 5).  Phases,
-each a loop over the ranks:
+Port of ``gpu_radix_sort_tpu/parallel/pipeline.py`` onto the mesh of
+:mod:`.mesh`, a single controller or a process group (BASELINE.json config
+5).  Phases, each a loop over this process's ranks:
 
   1. **Filter, hash order and local combine.**  The JAX package sorts
      (dropped, hash, key, value) stably.  The hash is a bijection, so equal
@@ -53,7 +53,9 @@ from ..ops.radix_sort import sort_full, sort_key_value
 from ..ops.table import VALID_AGG_OPS, _unhash_u32, group_aggregate_sorted, hash_u32, pack_by_mask
 from .distributed import OverflowError_
 from .exchange import default_capacity, send_windows
-from .mesh import KEY_AXIS, KeyMesh, all_gather, all_to_all, key_mesh, psum
+from .mesh import (
+    KEY_AXIS, KeyMesh, all_gather, all_to_all, global_ranks, key_mesh, psum, single_controller,
+)
 from .sample_sort import _check_shards, _key_tensor, _pad_and_shard
 
 HASH_PAD = 0xFFFFFFFF  # the largest hash: dropped rows sort after every valid one
@@ -162,11 +164,12 @@ def _padded_windows(x: torch.Tensor, starts: torch.Tensor, capacity: int, fill: 
 
 
 def _pipeline(keys: list, values: list, row_valid: list, *, capacity: int, op: str,
-              predicate):
-    """The hash aggregate over the ranks' shards.  Returns per-rank (group
-    keys, aggregates) buffers of P * capacity rows, per-rank group counts as
-    (1,) int32 tensors, and the overflow count on the first rank's device."""
-    P = len(keys)
+              predicate, mesh: KeyMesh | None):
+    """The hash aggregate over this process's shards.  Returns per-rank
+    (group keys, aggregates) buffers of P * capacity rows, per-rank group
+    counts as (1,) int32 tensors, and the overflow count of the whole mesh
+    on the first local rank's device."""
+    P, first = global_ranks(mesh, len(keys))
     merge_op = "sum" if op == "count" else op
 
     # 1. filter, hash order, local combine
@@ -184,25 +187,26 @@ def _pipeline(keys: list, values: list, row_valid: list, *, capacity: int, op: s
 
     # 2. splitters over the hash order
     hashes = [_flipped_hashes(uniq, ng) for uniq, _, ng in combined]
-    gathered = all_gather([_samples(hf, ng, P) for hf, (_, _, ng) in zip(hashes, combined)])
+    gathered = all_gather([_samples(hf, ng, P) for hf, (_, _, ng) in zip(hashes, combined)],
+                          mesh)
     bounds = [_send_bounds(hf, ng, g) for hf, (_, _, ng), g in zip(hashes, combined, gathered)]
     del hashes, gathered
 
     # 3. the capacity-bounded exchange
     send_count = [b[1:] - b[:-1] for b in bounds]
-    overflow = psum([(c > capacity).any().to(torch.int32) for c in send_count])
+    overflow = psum([(c > capacity).any().to(torch.int32) for c in send_count], mesh)
     recv_k = all_to_all([_padded_windows(uniq, b[:-1], capacity, 0)
-                         for (uniq, _, _), b in zip(combined, bounds)])
+                         for (uniq, _, _), b in zip(combined, bounds)], mesh)
     recv_a = all_to_all([_padded_windows(agg, b[:-1], capacity, _identity_bits(merge_op, agg.dtype))
-                         for (_, agg, _), b in zip(combined, bounds)])
-    counts_mat = all_gather(send_count)
+                         for (_, agg, _), b in zip(combined, bounds)], mesh)
+    counts_mat = all_gather(send_count, mesh)
     agg_dtype = combined[0][1].dtype
     del combined, bounds
 
     # 4. final merge
     out_k, out_a, ngroups = [], [], []
-    for my, (rk, ra, cm) in enumerate(zip(recv_k, recv_a, counts_mat)):
-        valid = (_positions(capacity, rk.device)[None, :] < cm[:, my, None]).reshape(-1)
+    for i, (rk, ra, cm) in enumerate(zip(recv_k, recv_a, counts_mat)):
+        valid = (_positions(capacity, rk.device)[None, :] < cm[:, first + i, None]).reshape(-1)
         pk, pa, total = pack_by_mask(valid, rk.reshape(-1), ra.reshape(-1))
         tail = _positions(pk.shape[0], pk.device) >= total
         pk = torch.where(tail, _PAD_WORD, pk).view(KEY_DTYPE)
@@ -226,13 +230,14 @@ def build_hash_aggregate(
     """The distributed group-by of P shards of ``n_local`` rows.
 
     Returns ``(fn, capacity)``: ``fn(keys, values, row_valid) ->
-    (group_keys, aggregates, ngroups, overflow)``, each input a list of P
-    1-D tensors of ``n_local`` rows (shard r on ``mesh.devices[r]``): uint32
-    keys, values (ignored for ``op="count"``: pass the keys), and bool
-    ``row_valid`` (rows marked False never contribute).  Each rank returns
-    P * capacity rows of group keys and aggregates, its first
-    ``ngroups[r]`` valid ((1,) int32), and ``overflow`` is an int32 scalar
-    on the first rank's device (the ranks whose sends overflowed).
+    (group_keys, aggregates, ngroups, overflow)``, each input a list of this
+    process's 1-D tensors of ``n_local`` rows (shard r on
+    ``mesh.devices[r]``; all P on a single controller): uint32 keys, values
+    (ignored for ``op="count"``: pass the keys), and bool ``row_valid``
+    (rows marked False never contribute).  Each rank returns P * capacity
+    rows of group keys and aggregates, its first ``ngroups[r]`` valid ((1,)
+    int32), and ``overflow`` is an int scalar on the first local rank's
+    device (the ranks of the whole mesh whose sends overflowed).
 
     ``predicate`` filters the rows: a callable on a rank's keys, given as
     int64 values 0 ... 2^32 - 1 on the rank's device (torch has no uint32
@@ -245,7 +250,8 @@ def build_hash_aggregate(
         keys = _check_shards(keys, mesh, n_local, "uint32 key")
         values = _check_shards(values, mesh, n_local, "value")
         row_valid = _check_shards(row_valid, mesh, n_local, "row_valid")
-        return _pipeline(keys, values, row_valid, capacity=capacity, op=op, predicate=predicate)
+        return _pipeline(keys, values, row_valid, capacity=capacity, op=op,
+                         predicate=predicate, mesh=mesh)
 
     return fn, capacity
 
@@ -280,7 +286,9 @@ def hash_aggregate_distributed(
     numpy array (cast to uint32) or a uint32 tensor, ``values`` 1-D of the
     same length (required unless ``op="count"``); ``predicate`` as in
     :func:`build_hash_aggregate`.  Raises :class:`OverflowError_` where the
-    exchange overflows."""
+    exchange overflows, and ValueError on a process-group mesh (call
+    :func:`build_hash_aggregate`'s function in every process)."""
+    single_controller(mesh, "hash_aggregate_distributed", "build_hash_aggregate")
     mesh = mesh or key_mesh()
     keys = _key_tensor(keys)
     n = keys.numel()

@@ -1,7 +1,8 @@
 """Distributed sample sort (PSRS), the performance-mode distributed sort.
 
-Port of ``gpu_radix_sort_tpu/parallel/sample_sort.py`` onto the
-single-controller mesh of :mod:`.mesh`.  Where the LSD sort pays 32/width
+Port of ``gpu_radix_sort_tpu/parallel/sample_sort.py`` onto the mesh of
+:mod:`.mesh`, a single controller or a process group (each process loops
+over its local ranks; ranks are global in the splitters and the plans).  Where the LSD sort pays 32/width
 rounds of a local sort and a full exchange, Parallel Sorting by Regular
 Sampling pays one local sort, one splitter-partitioned exchange and one
 reassembly.  Phases, each a loop over the ranks:
@@ -69,7 +70,10 @@ from ..ops.radix_sort import _gather_rows, sort_full, sort_key_value, sort_key_v
 from .distributed import OverflowError_, _as_keys, sort_distributed
 from .exchange import PAD_KEY
 from .exchange import default_capacity as default_pair_capacity
-from .mesh import KEY_AXIS, KeyMesh, all_gather, all_to_all, key_mesh, psum, shard
+from .mesh import (
+    KEY_AXIS, KeyMesh, all_gather, all_to_all, global_ranks, key_mesh, psum, shard,
+    single_controller,
+)
 
 PAD_KEY64 = -INT64_MIN - 1  # the encoded word 0xFFFF_FFFF_FFFF_FFFF, sortable
 _INT32_MIN = -(1 << 31)
@@ -218,12 +222,12 @@ def _kv_layout(valid_rx, recv_count, self_lo, self_hi, my: int, n: int):
 
 
 def _psrs(shards: list, vals: list | None, *, form: _KeyForm, capacity: int,
-          reassembly: str = "sort"):
-    """PSRS over the ranks' shards (1-D, in ``form``'s representation) and,
-    for the key-value forms, their (n, W) payload rows.  Returns (sorted
+          mesh: KeyMesh | None, reassembly: str = "sort"):
+    """PSRS over this process's shards (1-D, in ``form``'s representation)
+    and, for the key-value forms, their (n, W) payload rows.  Returns (sorted
     buffers, their payloads or None, valid counts as (1,) int64 tensors, the
-    overflow count on the first rank's device)."""
-    P, n = len(shards), shards[0].shape[0]
+    overflow count of the whole mesh on the first local rank's device)."""
+    (P, first), n = global_ranks(mesh, len(shards)), shards[0].shape[0]
     order = "rank_chip" if vals is None else "chip_rank"
 
     # 1. local sort
@@ -235,22 +239,24 @@ def _psrs(shards: list, vals: list | None, *, form: _KeyForm, capacity: int,
 
     # 2. regular sampling on composites, 3. the send plans
     stride = max(n // P, 1)
-    samples = all_gather([t[torch.arange(P, device=t.device) * stride] for t in search])
-    plans = [_send_plan(t, _composite_splitters(g, stride, order), my, P, capacity, order)
-             for my, (t, g) in enumerate(zip(search, samples))]
+    samples = all_gather([t[torch.arange(P, device=t.device) * stride] for t in search], mesh)
+    plans = [_send_plan(t, _composite_splitters(g, stride, order), first + i, P, capacity, order)
+             for i, (t, g) in enumerate(zip(search, samples))]
     del search, samples
 
     # the capacity-bounded exchange
-    recv_k = all_to_all([_windows(s, b[:-1], capacity) for (s, _), (b, _, _) in zip(local, plans)])
+    recv_k = all_to_all([_windows(s, b[:-1], capacity)
+                         for (s, _), (b, _, _) in zip(local, plans)], mesh)
     recv_v = None
     if vals is not None:
         recv_v = all_to_all([_windows(v, b[:-1], capacity)
-                             for (_, v), (b, _, _) in zip(local, plans)])
-    counts_mat = all_gather([offdiag for _, offdiag, _ in plans])
+                             for (_, v), (b, _, _) in zip(local, plans)], mesh)
+    counts_mat = all_gather([offdiag for _, offdiag, _ in plans], mesh)
 
     # 4. reassembly
     out_k, out_v, counts = [], [], []
-    for my, ((s, sv), (b, _, _), rk, cm) in enumerate(zip(local, plans, recv_k, counts_mat)):
+    for i, ((s, sv), (b, _, _), rk, cm) in enumerate(zip(local, plans, recv_k, counts_mat)):
+        my = first + i
         recv_count = cm[:, my]  # 0 at my own row: bypassed
         valid_rx = torch.arange(capacity, device=s.device)[None, :] < recv_count[:, None]
         self_lo, self_hi = b[my], b[my + 1]
@@ -266,11 +272,11 @@ def _psrs(shards: list, vals: list | None, *, form: _KeyForm, capacity: int,
         index, valid, total = _kv_layout(valid_rx, recv_count, self_lo, self_hi, my, n)
         keys = torch.where(valid, torch.cat([rk.reshape(-1), s]), form.pad)
         mk, perm = form.sort_kv(keys.index_select(0, index), index)
-        rows = torch.cat([recv_v[my].reshape(-1, *sv.shape[1:]), sv])
+        rows = torch.cat([recv_v[i].reshape(-1, *sv.shape[1:]), sv])
         out_k.append(mk)
         out_v.append(_gather_rows(rows, perm))
         counts.append(total.view(1))
-    overflow = psum([ovf.to(torch.int32) for _, _, ovf in plans])
+    overflow = psum([ovf.to(torch.int32) for _, _, ovf in plans], mesh)
     return out_k, (out_v if vals is not None else None), counts, overflow
 
 
@@ -280,10 +286,11 @@ def _check_reassembly(reassembly: str) -> None:
 
 
 def _check_shards(shards: list, mesh: KeyMesh, n_local: int, what: str) -> list:
+    """This process's shards, one on each local rank's device."""
     shards = list(shards)
-    if len(shards) != mesh.size or any(
+    if len(shards) != len(mesh.devices) or any(
             s.shape[0] != n_local or s.device != d for s, d in zip(shards, mesh.devices)):
-        raise ValueError(f"expected {mesh.size} {what} shards of {n_local} rows on "
+        raise ValueError(f"expected {len(mesh.devices)} {what} shards of {n_local} rows on "
                          f"{mesh.devices}")
     return shards
 
@@ -299,11 +306,12 @@ def build_sample_sort(
     """The distributed sample sort of P shards of ``n_local`` uint32 keys.
 
     Returns ``(fn, capacity)``: ``fn(shards) -> (buffers, counts,
-    overflow)``, ``shards`` a list of P 1-D uint32 tensors (shard r on
-    ``mesh.devices[r]``), ``buffers`` each rank's sorted uint32 buffer of
-    P * capacity + n_local keys, ``counts`` each rank's valid prefix length
-    as a (1,) int64 tensor, ``overflow`` an int32 scalar on the first rank's
-    device (the ranks whose off-diagonal sends overflowed ``capacity``).
+    overflow)``, ``shards`` a list of this process's 1-D uint32 tensors
+    (shard r on ``mesh.devices[r]``; all P on a single controller),
+    ``buffers`` each rank's sorted uint32 buffer of P * capacity + n_local
+    keys, ``counts`` each rank's valid prefix length as a (1,) int64 tensor,
+    ``overflow`` an int scalar on the first local rank's device (the ranks
+    of the whole mesh whose off-diagonal sends overflowed ``capacity``).
 
     ``reassembly``: "sort" (one ``sort_full`` of the buffer) or "merge"
     (:func:`ops.merge_sort.merge_presorted` from L = capacity).  The JAX
@@ -316,7 +324,7 @@ def build_sample_sort(
         shards = _check_shards(shards, mesh, n_local, "uint32")
         out, _, counts, overflow = _psrs(
             [s.view(torch.int32) for s in shards], None, form=_KEYS32,
-            capacity=capacity, reassembly=reassembly)
+            capacity=capacity, mesh=mesh, reassembly=reassembly)
         return [o.view(KEY_DTYPE) for o in out], counts, overflow
 
     return fn, capacity
@@ -344,7 +352,7 @@ def build_sample_sort_kv(
             raise ValueError(f"payload shards must be (n_local, {payload_lanes})")
         out_k, out_v, counts, overflow = _psrs(
             [k.view(torch.int32) for k in keys], [v.view(torch.int32) for v in vals],
-            form=_KEYS32, capacity=capacity)
+            form=_KEYS32, capacity=capacity, mesh=mesh)
         return ([k.view(KEY_DTYPE) for k in out_k], [v.view(KEY_DTYPE) for v in out_v],
                 counts, overflow)
 
@@ -371,7 +379,7 @@ def build_sample_sort_64(
         hi = _check_shards(hi, mesh, n_local, "hi-word")
         lo = _check_shards(lo, mesh, n_local, "lo-word")
         out, _, counts, overflow = _psrs(_joined(hi, lo), None, form=_KEYS64,
-                                         capacity=capacity)
+                                         capacity=capacity, mesh=mesh)
         words = [split_words(o) for o in out]
         return [w[0] for w in words], [w[1] for w in words], counts, overflow
 
@@ -399,7 +407,7 @@ def build_sample_sort_kv64(
             raise ValueError(f"payload shards must be (n_local, {payload_lanes})")
         out_k, out_v, counts, overflow = _psrs(
             _joined(hi, lo), [v.view(torch.int32) for v in vals], form=_KEYS64,
-            capacity=capacity)
+            capacity=capacity, mesh=mesh)
         words = [split_words(o) for o in out_k]
         return ([w[0] for w in words], [w[1] for w in words],
                 [v.view(KEY_DTYPE) for v in out_v], counts, overflow)
@@ -488,7 +496,10 @@ def sort_distributed_sample(
     adversarial placement -- a rank holding more than capacity keys bound
     for one other rank (reverse block-sorted input).  Then ``fallback=True``
     sorts through the exact gather exchange of the LSD sort, and
-    ``fallback=False`` raises :class:`OverflowError_`."""
+    ``fallback=False`` raises :class:`OverflowError_`.  On a process-group
+    mesh it raises: call :func:`build_sample_sort`'s function in every
+    process."""
+    single_controller(mesh, "sort_distributed_sample", "build_sample_sort")
     keys = _as_keys(keys)
     if keys.dtype in (torch.int32, torch.float32):
         out = sort_distributed_sample(
@@ -544,7 +555,10 @@ def sort_key_value_distributed(
     payload rows in their order, equal to a stable single-device key-value
     sort, on the mesh's first device.  ``values``: (n, W) uint32 or (n, B)
     uint8 rows with B % 4 == 0, returned in their dtype.  Raises
-    :class:`OverflowError_` where the exchange overflows."""
+    :class:`OverflowError_` where the exchange overflows, and ValueError on a
+    process-group mesh (call :func:`build_sample_sort_kv`'s function in
+    every process)."""
+    single_controller(mesh, "sort_key_value_distributed", "build_sample_sort_kv")
     keys = _key_tensor(keys)
     lanes, dtype = _payload(values, keys.numel())
     out_k, out_v = _sort_kv_tensors(keys, lanes, mesh, capacity_factor)
@@ -568,7 +582,7 @@ def _single_pass64(enc: torch.Tensor, lanes: torch.Tensor | None, mesh: KeyMesh,
     capacity = default_pair_capacity(n_local, mesh.size, capacity_factor)
     val_shards = None if lanes is None else _pad_and_shard(lanes, mesh, 0)[0]
     out_k, out_v, counts, overflow = _psrs(shards, val_shards, form=_KEYS64,
-                                           capacity=capacity)
+                                           capacity=capacity, mesh=mesh)
     if int(overflow) > 0:
         return None
     if lanes is None:
@@ -590,7 +604,10 @@ def sort_key_value_distributed_64(
     :func:`sort_key_value_distributed`.  One stable key-value PSRS of the
     keys; ``single_pass=False`` (and an overflow) composes two stable
     32-bit key-value sample sorts instead: by the lo word carrying the hi
-    word and the payload, then by the hi word carrying the lo word."""
+    word and the payload, then by the hi word carrying the lo word.  On a
+    process-group mesh it raises: call :func:`build_sample_sort_kv64`'s
+    function in every process."""
+    single_controller(mesh, "sort_key_value_distributed_64", "build_sample_sort_kv64")
     keys = _keys64(keys, "sort_key_value_distributed_64")
     lanes, dtype = _payload(values, keys.numel())
     enc = encode_ordered64(keys)
@@ -621,7 +638,10 @@ def sort_distributed_64(
     mesh's first device.  One keys-only PSRS of the sortable int64 words;
     ``single_pass=False`` (and an overflow) runs the LSD composition of two
     stable 32-bit key-value sample sorts instead (by the lo word carrying
-    the hi word, then by the hi word carrying the lo word)."""
+    the hi word, then by the hi word carrying the lo word).  On a
+    process-group mesh it raises: call :func:`build_sample_sort_64`'s
+    function in every process."""
+    single_controller(mesh, "sort_distributed_64", "build_sample_sort_64")
     keys = _keys64(keys, "sort_distributed_64")
     enc = encode_ordered64(keys)
     got = None
