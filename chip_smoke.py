@@ -89,7 +89,14 @@
    the torch.distributed calls counted (the same whatever the ranks a
    process holds), no host wait inside the NCCL calls, times (CUDA events
    beside the single-controller mesh of the same ranks and torch.sort;
-   host clock through barriers over gloo) and the bytes staged;
+   host clock through barriers over gloo) and the bytes staged; the LSD
+   sort also through rdma and rdma_overlap, whose B6 and B7 store into the
+   receive buffers of the other process through CUDA IPC over gloo (only
+   the digit counts staged), with one exchange round of each timed; before
+   the paths, each process holds the raw rounds of B6 and B7 (receive
+   buffers aligned and at word offsets 1-3) against the single
+   controller's, byte for byte; then dryrun_multichip(8) on eight ranks of
+   cuda:0 (gpu_radix_sort_tpu_torch/dryrun.py, nine exact checks);
 13. drives the storage plane at the reference's distributed configuration
    (storage_path): sort_distrib_from_raw of 512Mi PCG32 keys at width 8
    over 2 workers, exact against one np.sort, with launch counts: sort_full
@@ -135,9 +142,11 @@ and times each sort, a B6 round and a B7 round (overlapped and serial)
 across the cards against the same work on as many ranks of cuda:0; and the
 same for the sample sort, both reassemblies, and the hash aggregate count of
 256Mi Zipf(1.2) keys; then four child processes over NCCL, one card each
-(pod_key_mesh()), run the LSD sort and PSRS at 256Mi and 1Gi keys in all
-and the count aggregate, exact, beside the single-controller mesh of the
-same cards.
+(pod_key_mesh()), run the LSD sort (alltoall, and rdma and rdma_overlap
+storing across the cards into each other's buffers through CUDA IPC) and
+PSRS at 256Mi and 1Gi keys in all and the count aggregate, exact, beside the
+single-controller mesh of the same cards, after the raw rounds of B6 and
+B7 across the cards; then dryrun_multichip over the cards.
 
     python3 chip_smoke.py --multihost
 
@@ -2244,7 +2253,18 @@ N_MULTIHOST_CARDS = 1 << 30  # --all-cards: 256Mi a card, the reference's size a
 MULTIHOST_RANKS = 4  # ranks a mesh of one card: four processes of one, two of two
 MULTIHOST_DIR = "_multihost_smoke"  # the children's oracles (listed in .gitignore)
 MULTIHOST_TIMEOUT_S = 420  # a phase's children, all told
+GLOO_STAGED_REPS = 1  # timed calls of a gloo row that stages its keys: seconds a call
 MULTIHOST_KERNELS = ("block_sort", "merge_level", "binning", "segment_copy", "group_sort_send")
+# the paths of the multi-process phases and the kernels each must launch
+MULTIHOST_REQUIRED = {
+    "lsd alltoall": ("block_sort", "merge_level"),
+    "lsd rdma": ("segment_copy", "block_sort", "merge_level"),
+    "lsd rdma_overlap": ("group_sort_send", "binning"),
+    "sample sort": ("block_sort", "merge_level"),
+    "sample merge": ("block_sort", "merge_level"),
+    "aggregate count": ("block_sort", "merge_level", "binning"),
+}
+PEER_PATHS = ("lsd rdma", "lsd rdma_overlap")  # B6 and B7 into other processes' buffers
 # every collective of torch.distributed, counted in the children (the podscale guard)
 COLLECTIVES = ("all_gather", "all_gather_into_tensor", "all_reduce", "all_to_all",
                "all_to_all_single", "barrier", "broadcast", "gather", "reduce",
@@ -2306,7 +2326,13 @@ def run_children(spec: dict, world: int, local_ranks: list, what: str) -> list:
             futures = [pool.submit(p.communicate, timeout=MULTIHOST_TIMEOUT_S) for p in procs]
             outs = [f.result() for f in futures]
     except subprocess.TimeoutExpired:
-        fail(f"{what}: a child outlived {MULTIHOST_TIMEOUT_S} s")
+        # the children dumped their stacks shortly before (faulthandler)
+        tails = []
+        for p, proc in enumerate(procs):
+            proc.kill()
+            stdout, stderr = proc.communicate()
+            tails.append(f"process {p}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        fail(f"{what}: a child outlived {MULTIHOST_TIMEOUT_S} s\n" + "\n".join(tails))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2341,6 +2367,79 @@ def barrier_ms(fn, dev, side, reps: int, warmup: int = 1) -> float:
     return statistics.median(samples)
 
 
+def peer_staged_bytes(path: str, n_local: int, L: int, P: int) -> int:
+    """What a peer-memory LSD sort at width 8 stages through host memory in
+    a process over gloo: each of its 4 rounds gathers the digit counts (256
+    int32 a rank for rdma; a group of the largest tile for rdma_overlap)
+    from the L local ranks to the host and all P back, and the overflow
+    count's sum goes out and back.  No key."""
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+
+    per_rank = 256 * 4 * (1 if path == "lsd rdma" else n_local // ov.pick_tile(n_local))
+    return 4 * (L + P) * per_rank + 2 * 8
+
+
+def peer_round(path: str, shards: list, mesh, peers=None):
+    """A function that runs one exchange round (digit 0..7) of the path's
+    kernel over this process's ``shards`` on ``mesh``, without the
+    reassembly: B6 on shards digit-sorted here, once, or B7; into ``peers``
+    (a process-group mesh) or new receive buffers (a single controller)."""
+    from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+
+    if path == "lsd rdma":
+        sorted_ = [sort_by_digits(s, 0, 8) for s in shards]
+        return lambda: rx.exchange_round_rdma_raw(sorted_, 0, 8, mesh, peers)
+    tile = ov.pick_tile(shards[0].numel())
+    return lambda: ov.exchange_round_rdma_overlapped_raw(shards, 0, 8, tile=tile, mesh=mesh,
+                                                         peers=peers)
+
+
+def check_raw_rounds(mesh, dev) -> int:
+    """The process-group raw rounds of B6 and B7 (receive buffers before
+    the reassembly) byte for byte against the single controller's on
+    ``mesh.size`` ranks of ``dev`` in this process, keys with Zipf(1.3)
+    digits (bits 8-15) made alike in every process, the receive buffers
+    aligned and at word offsets 1-3 (staggered by rank), B6 at
+    check_segment_alignment's n_local.  Returns the buffers compared."""
+    from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
+    from gpu_radix_sort_tpu_torch.parallel import mesh as pm
+    from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+    from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
+    from gpu_radix_sort_tpu_torch.parallel.peer_memory import PeerBuffers
+
+    P, first, L = mesh.size, mesh.first, len(mesh.devices)
+    single = pm.key_mesh([dev] * P)
+    rng = np.random.default_rng(16)
+    compared = 0
+    for kernel, n_local in (("B6", 3 * rx.COPY_CHUNK + 5), ("B7", 3 * ov.MAX_TILE)):
+        skewed = dict(exchange_inputs(rng, P * n_local))["skewed"]
+        x = torch.from_numpy(skewed).to(dev)
+        if kernel == "B6":
+            every = [sort_by_digits(s, 8, 8) for s in pm.shard(x, single)]
+            want = rx.exchange_round_rdma_raw(every, 8, 8)[1]
+        else:
+            every = pm.shard(x, single)
+            want = ov.exchange_round_rdma_overlapped_raw(every, 8, 8, tile=ov.MAX_TILE)
+        mine = every[first:first + L]
+        for offsets in (None, [1 + g % 3 for g in mesh.ranks]):
+            peers = PeerBuffers(mesh, n_local, offsets=offsets)
+            if kernel == "B6":
+                got = rx.exchange_round_rdma_raw(mine, 8, 8, mesh, peers)[1]
+            else:
+                got = ov.exchange_round_rdma_overlapped_raw(mine, 8, 8, tile=ov.MAX_TILE,
+                                                            mesh=mesh, peers=peers)
+            if [g.data_ptr() % 16 for g in got] != [4 * o for o in offsets or [0] * L]:
+                fail(f"raw {kernel} round: receive buffers not at the word offsets {offsets}")
+            same_bytes(got, want[first:first + L],
+                       f"raw {kernel} round on the process-group mesh (global ranks "
+                       f"{list(mesh.ranks)}, offsets {offsets})")
+            compared += L
+            del peers, got
+    return compared
+
+
 def multihost_child(spec: dict) -> int:
     """One process of the multi-process mesh (``--multihost-child``): joins
     the group that torchrun's variables name, holds ``spec["ranks"]`` ranks
@@ -2351,6 +2450,8 @@ def multihost_child(spec: dict) -> int:
     single-controller mesh of the same ranks and torch.sort where
     ``spec["events"]``, else the host clock through barriers).  Prints one
     MULTIHOST_RESULT line."""
+    import faulthandler
+
     import torch.distributed as dist
 
     from gpu_radix_sort_tpu_torch.kernels import build
@@ -2365,9 +2466,11 @@ def multihost_child(spec: dict) -> int:
     from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
     from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
     from gpu_radix_sort_tpu_torch.parallel.multihost import initialize_distributed, pod_key_mesh
+    from gpu_radix_sort_tpu_torch.parallel.peer_memory import PeerBuffers
     from gpu_radix_sort_tpu_torch.utils import keygen, timers
 
     counters = dict(zip(MULTIHOST_KERNELS, (bs, ms, bn, rx, ov)))
+    faulthandler.dump_traceback_later(MULTIHOST_TIMEOUT_S - 30)  # a hang shows where it is
     initialize_distributed(backend=spec["backend"])
     dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     torch.cuda.set_device(dev)
@@ -2417,6 +2520,9 @@ def multihost_child(spec: dict) -> int:
         return pm.all_gather([c.view(1).to(torch.int64) for c in counts],
                              mesh)[0].view(-1).cpu().numpy()
 
+    t0 = time.perf_counter()
+    res["raw_rounds"] = check_raw_rounds(mesh, dev)
+    res["raw_rounds_s"] = time.perf_counter() - t0
     for n, paths in spec["sizes"]:
         n_local = n // P
         keys_np = keygen.Pcg32().fill(n)
@@ -2425,9 +2531,9 @@ def multihost_child(spec: dict) -> int:
         want = np.load(spec["files"][str(n)], mmap_mode="r")
         runs = {}
         for path in paths:
-            if path == "lsd alltoall":
-                def build_fn(m, n_local=n_local):
-                    fn = pd.build_distributed_sort(m, n_local, width=8, exchange="alltoall",
+            if path.startswith("lsd"):
+                def build_fn(m, n_local=n_local, exchange=path.split()[1]):
+                    fn = pd.build_distributed_sort(m, n_local, width=8, exchange=exchange,
                                                    capacity_factor=1.5)
                     return lambda: fn(shards)
             elif path.startswith("sample"):
@@ -2449,7 +2555,7 @@ def multihost_child(spec: dict) -> int:
             what = f"{path}, {n} keys, {W} x {L} ranks over {spec['backend']}, process {first // L}"
             if int(out[-1]) != 0:
                 fail(f"{what}: overflow {int(out[-1])}")
-            if path == "lsd alltoall":
+            if path.startswith("lsd"):
                 check_sorted(what, out[0], np.full(P, n_local), want)
             elif path.startswith("sample"):
                 check_sorted(what, out[0], gathered_counts(out[1]), want)
@@ -2470,9 +2576,12 @@ def multihost_child(spec: dict) -> int:
                 if not (seen == 1).all():
                     fail(f"{what}: {int((seen == 0).sum())} groups missing, "
                          f"{int((seen > 1).sum())} repeated")
-            if launches["block_sort"] == 0 or launches["merge_level"] == 0 or (
-                    path == "aggregate count" and launches["binning"] == 0):
+            if any(launches[k] == 0 for k in MULTIHOST_REQUIRED[path]):
                 fail(f"{what}: a kernel of the path was not launched: {launches}")
+            if path in PEER_PATHS and spec["backend"] != "nccl" and (
+                    staged != peer_staged_bytes(path, n_local, L, P)):
+                fail(f"{what}: {staged} bytes staged through host memory, the digit counts "
+                     f"alone are {peer_staged_bytes(path, n_local, L, P)}")
             del out
             row = {"launches": launches, "collective_calls": calls, "staged_bytes": staged}
             if spec["backend"] == "nccl":
@@ -2488,14 +2597,26 @@ def multihost_child(spec: dict) -> int:
                 if row["single_launches"] != launches:
                     fail(f"{what}: launches {launches}, the single-controller mesh's "
                          f"{row['single_launches']}")
+                # the counted calls and the sync check were the warmup
                 torch.cuda.reset_peak_memory_stats(dev)
-                row["ms"] = timers.time_cuda(call)
+                row["ms"] = timers.time_cuda(call, warmup=0)
                 row["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
-                row["single_ms"] = timers.time_cuda(single)
+                row["single_ms"] = timers.time_cuda(single, warmup=1)
                 del single
             else:
-                row["ms"] = barrier_ms(call, dev, side, spec["reps"])
+                row["reps"] = spec["reps"] if path in PEER_PATHS else spec.get(
+                    "staged_reps", spec["reps"])
+                row["ms"] = barrier_ms(call, dev, side, row["reps"], warmup=0)
             del call
+            if path in PEER_PATHS:  # one exchange round alone, into the sort's kind of buffers
+                one = peer_round(path, shards, mesh, PeerBuffers(mesh, n_local))
+                if spec["events"]:
+                    row["round_ms"] = timers.time_cuda(one)
+                    row["single_round_ms"] = timers.time_cuda(
+                        peer_round(path, shards, pm.key_mesh([dev] * L)))
+                else:
+                    row["round_ms"] = barrier_ms(one, dev, side, spec["reps"])
+                del one
             torch.cuda.empty_cache()
             runs[path] = row
         if spec["events"]:
@@ -2508,6 +2629,7 @@ def multihost_child(spec: dict) -> int:
         torch.cuda.empty_cache()
     dist.barrier(group=side)
     dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
     print("MULTIHOST_RESULT " + json.dumps(res), flush=True)
     return 0
 
@@ -2517,13 +2639,20 @@ def multihost_path(card: str, files: dict) -> dict:
     world size 1, holding four ranks of cuda:0, CUDA-event medians of 10
     beside the single-controller key_mesh([cuda:0] * 4) and torch.sort of
     the same keys; (2) two processes of two ranks of cuda:0 over gloo, their
-    collectives staged through host memory, host-clock medians of 3.  Each
-    path (the LSD sort, alltoall w8 at capacity 1.5; PSRS "sort" and
-    "merge"; the count aggregate of the 256Mi Zipf(1.2) keys) is exact
-    against numpy in every process, with its launches and its
-    torch.distributed calls counted, which must not grow with the ranks a
-    process holds.  Returns the results for the JSON line."""
-    paths = ["lsd alltoall", "sample sort", "sample merge", "aggregate count"]
+    collectives staged through host memory, host-clock medians of 3 (of
+    GLOO_STAGED_REPS for the rows that stage their keys).  Each
+    path (the LSD sort at w8 through alltoall at capacity 1.5, rdma and
+    rdma_overlap, whose B6 and B7 store into the other process's receive
+    buffers through CUDA IPC in (2); PSRS "sort" and "merge"; the count
+    aggregate of the 256Mi Zipf(1.2) keys) is exact against numpy in every
+    process, with its launches and its torch.distributed calls counted,
+    which must not grow with the ranks a process holds; each process first
+    holds the raw rounds of B6 and B7 against the single controller's.
+    Then dryrun_multichip(8) on eight ranks of cuda:0.  Returns the results
+    for the JSON line."""
+    from gpu_radix_sort_tpu_torch.dryrun import dryrun_multichip
+
+    paths = ["lsd alltoall", *PEER_PATHS, "sample sort", "sample merge", "aggregate count"]
     base = {"files": {str(k): v for k, v in files.items()},
             "sizes": [[N_MULTIHOST, paths]]}
     res = {}
@@ -2534,9 +2663,19 @@ def multihost_path(card: str, files: dict) -> dict:
     res["nccl_1x4_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     two = run_children(dict(base, backend="gloo", ranks=MULTIHOST_RANKS // 2, events=False,
-                            reps=3), 2, [0, 0], "multihost phase 2 (gloo, two processes)")
+                            reps=3, staged_reps=GLOO_STAGED_REPS), 2, [0, 0],
+                       "multihost phase 2 (gloo, two processes)")
     res["gloo_2x2"] = two[0]["sizes"][str(N_MULTIHOST)]
+    res["gloo_2x2_launches"] = {
+        path: [r["sizes"][str(N_MULTIHOST)][path]["launches"] for r in two] for path in paths}
     res["gloo_2x2_s"] = time.perf_counter() - t0
+    res["raw_rounds"] = {"nccl_1x4": one["raw_rounds"], "gloo_2x2": [r["raw_rounds"] for r in two]}
+    log(f"multihost: raw rounds of B6 and B7 on the process-group mesh (receive buffers "
+        f"aligned and at word offsets 1-3, Zipf(1.3) digits) equal to the single "
+        f"controller's byte for byte: {one['raw_rounds']} buffers in the NCCL process "
+        f"({one['raw_rounds_s']:.1f} s), {[r['raw_rounds'] for r in two]} in the gloo "
+        f"processes, whose stores reach each other through CUDA IPC "
+        f"({max(r['raw_rounds_s'] for r in two):.1f} s)")
     for path in paths:
         a, b = res["nccl_1x4"][path], res["gloo_2x2"][path]
         total = {k: sum(r["sizes"][str(N_MULTIHOST)][path]["launches"][k] for r in two)
@@ -2548,39 +2687,57 @@ def multihost_path(card: str, files: dict) -> dict:
         log(f"time [{card}]: multihost {path}, {N_MULTIHOST} keys on 4 ranks of cuda:0, exact: "
             f"1 process x 4 ranks over NCCL {a['ms']:.3f} ms (CUDA events, median of 10; "
             f"single-controller mesh {a['single_ms']:.3f} ms; peak {a['peak_mib']:.0f} MiB); "
-            f"2 processes x 2 ranks over gloo {b['ms']:.3f} ms (host clock, median of 3; "
+            f"2 processes x 2 ranks over gloo {b['ms']:.3f} ms (host clock, median of "
+            f"{b['reps']}; "
             f"{b['staged_bytes']} bytes staged through host memory a process); "
             f"launches {a['launches']}; {a['collective_calls']} torch.distributed calls a "
             f"process at 1 x 4 and 2 x 2; host waits inside the NCCL call: "
             f"{len(a['host_syncs'])}")
+        if path in PEER_PATHS:
+            log(f"time [{card}]: multihost {path}: one exchange round (digit 0-7, no "
+                f"reassembly) 1 x 4 over NCCL {a['round_ms']:.3f} ms (CUDA events; single "
+                f"controller {a['single_round_ms']:.3f} ms); 2 x 2 over gloo through IPC "
+                f"{b['round_ms']:.3f} ms (host clock); launches a gloo process "
+                f"{[r[MULTIHOST_REQUIRED[path][0]] for r in res['gloo_2x2_launches'][path]]} "
+                f"{MULTIHOST_REQUIRED[path][0]}; beside the same children's gloo alltoall "
+                f"{res['gloo_2x2']['lsd alltoall']['ms']:.3f} ms")
     log(f"time [{card}]: torch.sort (strategy='torch') of the same {N_MULTIHOST} keys "
         f"{res['nccl_1x4']['torch.sort']['ms']:.3f} ms; multihost phases "
         f"{res['nccl_1x4_s']:.1f} s + {res['gloo_2x2_s']:.1f} s")
+    t0 = time.perf_counter()
+    res["dryrun_8"] = dryrun_multichip(8)
+    res["dryrun_8_s"] = time.perf_counter() - t0
+    log(f"dryrun_multichip(8) on eight ranks of cuda:0: {len(res['dryrun_8'])} checks exact "
+        f"in {res['dryrun_8_s']:.1f} s")
     return res
 
 
 def multihost_cards_path(devs: list, card: str, files: dict, single: dict) -> dict:
     """``--all-cards``: four processes, one card each, over NCCL
-    (pod_key_mesh() in each), the LSD sort and PSRS at 256Mi and 1Gi keys in
+    (pod_key_mesh() in each), the LSD sort (alltoall, and rdma and
+    rdma_overlap, whose B6 and B7 store across the cards into the other
+    processes' buffers through CUDA IPC) and PSRS at 256Mi and 1Gi keys in
     all and the count aggregate of the 256Mi Zipf keys, exact, host-clock
     medians of 10 through barriers, beside the single-controller mesh of the
     same cards (``single``: its time and launches of each path at 256Mi from
     :func:`all_cards_path`, which the processes' launches must add up to;
-    at 1Gi its times measured here)."""
+    at 1Gi its times measured here); each process first holds the raw
+    rounds of B6 and B7 across the cards against the single controller's."""
     from gpu_radix_sort_tpu_torch.parallel import distributed as dist
     from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
     from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh, shard
     from gpu_radix_sort_tpu_torch.utils import keygen
 
     P = len(devs)
-    sorts = ["lsd alltoall", "sample sort", "sample merge"]
+    sorts = ["lsd alltoall", *PEER_PATHS, "sample sort", "sample merge"]
     # the single-controller mesh of the same cards at 1Gi
     mesh = key_mesh(devs)
     n_local = N_MULTIHOST_CARDS // P
     shards = shard(torch.from_numpy(keygen.Pcg32().fill(N_MULTIHOST_CARDS)), mesh)
     single_big = {
-        "lsd alltoall": dist.build_distributed_sort(mesh, n_local, width=8,
-                                                    exchange="alltoall", capacity_factor=1.5),
+        **{path: dist.build_distributed_sort(mesh, n_local, width=8, exchange=path.split()[1],
+                                             capacity_factor=1.5)
+           for path in ("lsd alltoall", *PEER_PATHS)},
         "sample sort": ss.build_sample_sort(mesh, n_local, capacity_factor=1.5)[0],
         "sample merge": ss.build_sample_sort(mesh, n_local, capacity_factor=1.5,
                                              reassembly="merge")[0],
@@ -2596,7 +2753,10 @@ def multihost_cards_path(devs: list, card: str, files: dict, single: dict) -> di
     t0 = time.perf_counter()
     results = run_children(spec, P, list(range(P)), f"multihost across {P} cards")
     res = {"seconds": time.perf_counter() - t0, "processes": results[0]["sizes"],
-           "single_1Gi_ms": single_big}
+           "single_1Gi_ms": single_big, "raw_rounds": [r["raw_rounds"] for r in results]}
+    log(f"multihost across {P} cards: raw rounds of B6 and B7 equal to the single "
+        f"controller's byte for byte, {res['raw_rounds']} buffers a process (stores across "
+        f"the cards through CUDA IPC)")
     for n, paths in spec["sizes"]:
         for path in paths:
             rows = [r["sizes"][str(n)][path] for r in results]
@@ -2610,11 +2770,12 @@ def multihost_cards_path(devs: list, card: str, files: dict, single: dict) -> di
             log(f"time [{card}]: multihost {path}, {n} keys, {P} processes x 1 card over NCCL, "
                 f"exact: {rows[0]['ms']:.3f} ms (host clock through barriers, median of 10); "
                 f"single-controller mesh of the {P} cards {base:.3f} ms; launches a process "
-                f"{[r['launches']['block_sort'] for r in rows]} block_sort, "
-                f"{[r['launches']['merge_level'] for r in rows]} merge_level, "
-                f"{[r['launches']['binning'] for r in rows]} binning; "
-                f"{rows[0]['collective_calls']} torch.distributed calls; host waits "
-                f"{sum(len(r['host_syncs']) for r in rows)}")
+                + "; ".join(f"{[r['launches'][k] for r in rows]} {k}" for k in MULTIHOST_KERNELS
+                            if any(r["launches"][k] for r in rows))
+                + f"; {rows[0]['collective_calls']} torch.distributed calls; host waits "
+                f"{sum(len(r['host_syncs']) for r in rows)}"
+                + (f"; one round {[round(r['round_ms'], 3) for r in rows]} ms"
+                   if path in PEER_PATHS else ""))
     return res
 
 
@@ -3101,31 +3262,45 @@ def main() -> int:
 
     del vals
     torch.cuda.empty_cache()
+    steps: dict = {}  # seconds into the script at the end of each step, for its time budget
+
+    def step_done(name: str) -> None:
+        steps[name] = time.perf_counter() - t_start
+        log(f"step: {name} done {steps[name]:.1f} s into the script")
+
+    step_done("build, kernel checks, sort_full and partial paths")
     keep: dict = {}
     kv = kv_table_path(dev, card, part, part_np, zipf_keys, keep)
+    step_done("kv, 64-bit and table paths")
     t0 = time.perf_counter()
     want = np.sort(part_np)
     log(f"np.sort of the {N_PART} keys in {time.perf_counter() - t0:.1f} s (the oracle "
         f"of the mesh and sample paths)")
     mesh = mesh_path(dev, rng, card, part, part_np, rank_info["segment_copy_kernel"],
                      rank_info["group_sort_send_kernel"], want)
+    step_done("mesh path")
     sample = sample_path(dev, card, part, part_np, want, keep)
+    step_done("sample path")
     mh_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), MULTIHOST_DIR)
     mh_files = multihost_files(mh_root, want=want)
     del part, want, keep
     torch.cuda.empty_cache()
     aggregate = aggregate_path(dev, card, agg_inputs)
+    step_done("aggregate path")
     zipf_pool.shutdown()
     mh_files.update(multihost_files(mh_root, agg=agg_inputs.result()))
     del agg_inputs
     torch.cuda.empty_cache()
     multihost = multihost_path(card, mh_files)
+    step_done("multihost phases")
     shutil.rmtree(mh_root, ignore_errors=True)
     storage = storage_path(dev, card, part_np, stream)
+    step_done("storage path")
     del part_np
     st_launches = storage["launches"]
     torch.cuda.empty_cache()
     bench = bench_path(dev, card)
+    step_done("bench step")
     del bench["records"]  # in chiprun_out/bench_full.jsonl and printed above
 
     def on_path(res: dict, kernel_name: str) -> dict:
@@ -3134,6 +3309,16 @@ def main() -> int:
     def mh_launches(kernel_name: str) -> dict:  # one process of four ranks over NCCL
         return {k: v["launches"][kernel_name] for k, v in multihost["nccl_1x4"].items()
                 if "launches" in v}
+
+    mesh_kernels = mesh.pop("kernels")
+    for row in mesh_kernels:  # B6 and B7: their launches and rounds on the multihost phases
+        path = {"segment_copy": "lsd rdma", "group_sort_send": "lsd rdma_overlap"}[row[0]]
+        row[9].update(
+            launches_multihost=mh_launches(row[0]),
+            launches_multihost_gloo=[r[row[0]] for r in multihost["gloo_2x2_launches"][path]],
+            multihost_round_ms=multihost["nccl_1x4"][path]["round_ms"],
+            multihost_round_single_ms=multihost["nccl_1x4"][path]["single_round_ms"],
+            multihost_round_gloo_ms=multihost["gloo_2x2"][path]["round_ms"])
 
     def kernel(name, source, replaces, n_launches, err, t, t_plain, b, t_lib, **extra):
         return {"name": name, "route": "cuda",
@@ -3199,13 +3384,13 @@ def main() -> int:
                launches_hash_aggregate=on_path(aggregate, "binning"),
                launches_bench=on_path(bench, "binning"),
                launches_multihost=mh_launches("binning")),
-        *(kernel(*k[:9], **k[9]) for k in mesh.pop("kernels")),
+        *(kernel(*k[:9], **k[9]) for k in mesh_kernels),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
         "sample": sample, "aggregate": aggregate, "multihost": multihost, "storage": storage,
-        "bench": bench, "card": card}))
+        "bench": bench, "steps_s": steps, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3278,11 +3463,19 @@ def all_cards_main() -> int:
     pool.shutdown()
     sort_pool.shutdown()
     single = {path: (res[f"{key}_cards_ms"], res["launches"][launches]) for path, key, launches in (
-        ("lsd alltoall", "alltoall", "alltoall"), ("sample sort", "sample_sort", "sample sort"),
+        ("lsd alltoall", "alltoall", "alltoall"), ("lsd rdma", "rdma", "rdma"),
+        ("lsd rdma_overlap", "rdma_overlap", "rdma_overlap"),
+        ("sample sort", "sample_sort", "sample sort"),
         ("sample merge", "sample_merge", "sample merge"),
         ("aggregate count", "hash_aggregate", "hash aggregate count"))}
     res["multihost"] = multihost_cards_path(devs, cards[0], files, single)
     shutil.rmtree(mh_root, ignore_errors=True)
+    from gpu_radix_sort_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    res["dryrun"] = dryrun_multichip(P)
+    log(f"dryrun_multichip({P}) across the {P} cards: {len(res['dryrun'])} checks exact in "
+        f"{time.perf_counter() - t0:.1f} s")
     print(json.dumps({"all_cards": P, "peer_access": access, **res, "cards": cards}))
     log(f"chip_smoke --all-cards: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

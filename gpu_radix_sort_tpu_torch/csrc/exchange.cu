@@ -26,7 +26,9 @@
 // (RankTable, kMaxRanks pointers): building a device table from the host
 // would put a synchronising copy on the stream in every round.  A receiver
 // on another card is written through peer access
-// (grs_enable_peer_access); on one card all buffers are local.
+// (grs_enable_peer_access); on one card all buffers are local.  A receiver
+// of another process (a process-group mesh) is its buffer mapped into this
+// process through CUDA IPC (grs_ipc_*, at the end of this file).
 //
 // Bounds on this card.  segment_copy reads and writes each key once, 8 bytes
 // a key: bound by device-memory bandwidth, so its design is about bytes in
@@ -50,6 +52,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "block_rank.cuh"
 
@@ -321,4 +324,81 @@ extern "C" int grs_enable_peer_access(int device, int peer) {
   }
   const cudaError_t back = cudaSetDevice(prev);
   return (int)(err != cudaSuccess ? err : back);
+}
+
+// -- Receive buffers that other processes store into (CUDA IPC) -------------
+//
+// On a process-group mesh the receivers of B6 and B7 live in other
+// processes (parallel/peer_memory.py).  Each process allocates its ranks'
+// receive buffers with cudaMalloc of its own, not through PyTorch's caching
+// allocator, so that an IPC handle's base is the buffer itself (the caching
+// allocator's blocks are carved out of larger segments, and under
+// expandable_segments cannot be exported at all), exports their handles,
+// and maps every peer's buffer into its own address space once, when the
+// sort is built.  The kernels take the mapped addresses as they take any
+// receiver's.  Each entry point works on `device` and restores the calling
+// thread's current device; each returns a CUDA status, which the wrapper
+// turns into an exception.  Nothing is copied through the host.
+
+namespace {
+
+// Runs f() with `device` current, then restores the previous device.
+template <typename F>
+int on_device(int device, F f) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = f();
+  const cudaError_t back = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : back);
+}
+
+}  // namespace
+
+// The size of an exported handle (cudaIpcMemHandle_t), in bytes.
+extern "C" int grs_ipc_handle_bytes() { return (int)sizeof(cudaIpcMemHandle_t); }
+
+// bytes of device memory on `device` into *ptr, with cudaMalloc.
+extern "C" int grs_ipc_alloc(int device, long long bytes, void** ptr) {
+  if (bytes <= 0 || ptr == nullptr) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] { return cudaMalloc(ptr, (size_t)bytes); });
+}
+
+// The IPC handle of a buffer from grs_ipc_alloc, into handle[0,
+// grs_ipc_handle_bytes()).
+extern "C" int grs_ipc_export(int device, void* ptr, void* handle) {
+  if (ptr == nullptr || handle == nullptr) return (int)cudaErrorInvalidValue;
+  return on_device(device, [&] {
+    return cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), ptr);
+  });
+}
+
+// Maps another process's buffer, named by its handle, for kernels on
+// `device` into *ptr.  Peer access to the buffer's card is enabled with the
+// mapping (cudaIpcMemLazyEnablePeerAccess); where the two cards cannot
+// reach each other the open fails and the exchange raises.  A process
+// cannot open its own handles: its own buffers are used by their pointers.
+extern "C" int grs_ipc_open(int device, const void* handle, void** ptr) {
+  if (handle == nullptr || ptr == nullptr) return (int)cudaErrorInvalidValue;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return on_device(device, [&] {
+    return cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  });
+}
+
+// Unmaps a buffer from grs_ipc_open.  Work still queued on `device` may
+// store into it, so the device is synchronised first.
+extern "C" int grs_ipc_close(int device, void* ptr) {
+  return on_device(device, [&] {
+    cudaError_t err = cudaDeviceSynchronize();
+    return err != cudaSuccess ? err : cudaIpcCloseMemHandle(ptr);
+  });
+}
+
+// Frees a buffer from grs_ipc_alloc (cudaFree waits for the device).
+extern "C" int grs_ipc_free(int device, void* ptr) {
+  return on_device(device, [&] { return cudaFree(ptr); });
 }

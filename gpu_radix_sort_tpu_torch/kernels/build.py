@@ -62,6 +62,17 @@ _SIGNATURES = {
                                 _P, _P, _P),
     # (device, peer)
     "grs_enable_peer_access": (ctypes.c_int, ctypes.c_int),
+    # () -> the size of an IPC handle
+    "grs_ipc_handle_bytes": (),
+    # (device, bytes, ptr_out)
+    "grs_ipc_alloc": (ctypes.c_int, ctypes.c_longlong, _P),
+    # (device, ptr, handle_out)
+    "grs_ipc_export": (ctypes.c_int, _P, _P),
+    # (device, handle, ptr_out)
+    "grs_ipc_open": (ctypes.c_int, _P, _P),
+    # (device, ptr)
+    "grs_ipc_close": (ctypes.c_int, _P),
+    "grs_ipc_free": (ctypes.c_int, _P),
     # (tile, blocks, smem_bytes)
     "grs_block_sort_blocks_per_sm": (ctypes.c_int, _P, _P),
     # (blocks, smem_bytes)

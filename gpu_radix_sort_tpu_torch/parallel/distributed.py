@@ -19,10 +19,12 @@ Two loops, as in JAX:
 Exchanges: ``gather``, ``alltoall`` and ``overflow`` (:mod:`.exchange`);
 ``rdma`` (B6, :mod:`.rdma_exchange`) and ``rdma_overlap`` (B7,
 :mod:`.rdma_overlap`), whose receive buffers are exact, so ``rdma`` takes
-any n_local (no 128-lane rounding); the last two store into peers' memory
-and run on a single controller only.  Strategies are the port's own:
-``"auto"`` runs the kernels, ``"torch"`` runs ``torch.sort`` (JAX's
-``"xla"``); JAX's ``"pallas_radix"`` has no counterpart.
+any n_local (no 128-lane rounding); the last two store into the peers'
+receive buffers: on a process-group mesh those of other processes, mapped
+once when the sort is built (:class:`.peer_memory.PeerBuffers`).
+Strategies are the port's own: ``"auto"`` runs the kernels, ``"torch"``
+runs ``torch.sort`` (JAX's ``"xla"``); JAX's ``"pallas_radix"`` has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ..ops.radix_sort import sort_full
 from . import exchange as ex
 from . import rdma_overlap as ov
 from .mesh import KEY_AXIS, KeyMesh, key_mesh, psum, shard, single_controller, unshard
+from .peer_memory import PeerBuffers
 from .rdma_exchange import exchange_round_rdma, exchange_round_rdma_raw
 
 _VALID_EXCHANGE = (
@@ -45,7 +48,7 @@ _FUSABLE = ("alltoall", "overflow", "rdma")
 _PEER_MEMORY = ("rdma", "rdma_overlap")
 
 
-def _round_fn(shards, *, offset, width, exchange, capacity, strategy, mesh=None):
+def _round_fn(shards, *, offset, width, exchange, capacity, strategy, mesh=None, peers=None):
     """One unfused round: returns (new shards, overflowed per rank)."""
     if exchange == "gather":
         return ex.exchange_round_gather(shards, offset, width, strategy=strategy, mesh=mesh)
@@ -55,17 +58,18 @@ def _round_fn(shards, *, offset, width, exchange, capacity, strategy, mesh=None)
             shards, offset, width, c0, c_ov, strategy=strategy, mesh=mesh
         )
     if exchange == "rdma":
-        return exchange_round_rdma(shards, offset, width, strategy=strategy)
+        return exchange_round_rdma(shards, offset, width, strategy=strategy, mesh=mesh,
+                                   peers=peers)
     if exchange == "rdma_overlap":
         return ov.exchange_round_rdma_overlapped(
-            shards, offset, width, tile=capacity, strategy=strategy
+            shards, offset, width, tile=capacity, strategy=strategy, mesh=mesh, peers=peers
         )
     return ex.exchange_round_alltoall(
         shards, offset, width, capacity, strategy=strategy, mesh=mesh
     )
 
 
-def _exchange_raw(sorted_shards, *, offset, width, exchange, capacity, mesh=None):
+def _exchange_raw(sorted_shards, *, offset, width, exchange, capacity, mesh=None, peers=None):
     """Round k's exchange of already digit-sorted shards without the
     reassembly: lists (tags, flat, overflowed), see
     ``exchange.exchange_round_alltoall_raw``."""
@@ -75,7 +79,7 @@ def _exchange_raw(sorted_shards, *, offset, width, exchange, capacity, mesh=None
             sorted_shards, offset, width, c0, c_ov, mesh
         )
     if exchange == "rdma":
-        return exchange_round_rdma_raw(sorted_shards, offset, width)
+        return exchange_round_rdma_raw(sorted_shards, offset, width, mesh, peers)
     return ex.exchange_round_alltoall_raw(sorted_shards, offset, width, capacity, mesh)
 
 
@@ -85,7 +89,8 @@ def _unslack(tags: torch.Tensor, z: torch.Tensor, width: int) -> torch.Tensor:
     return torch.where(slack, -1, z.view(torch.int32)).view(KEY_DTYPE)
 
 
-def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps, mesh=None):
+def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps, mesh=None,
+                      peers=None):
     """LSD loop where every round is ONE keys-only full sort of a
     bit-rotated key: round k's shard order (digit_k, bits [0, k*width),
     high bits) is the plain ascending order of rotr(x, (k+1)*width), a pure
@@ -109,7 +114,7 @@ def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps, me
             ]
         tags, flat, ovf = _exchange_raw(
             sorted_shards, offset=step * width, width=width,
-            exchange=exchange, capacity=capacity, mesh=mesh,
+            exchange=exchange, capacity=capacity, mesh=mesh, peers=peers,
         )
         overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
     # the final round's rotation is the identity: a plain value sort reassembles
@@ -141,8 +146,11 @@ def build_distributed_sort(
     capacity, summed over the whole mesh).  ``fuse_rounds`` (default: on
     for alltoall, overflow and rdma) runs :func:`_fused_sort_shard`; the
     output is bit-identical either way.  ``"rdma"`` and ``"rdma_overlap"``
-    store into the peers' buffers and need a single controller: on a
-    process-group mesh they raise NotImplementedError."""
+    store into the peers' receive buffers: on a process-group mesh the
+    build allocates this process's, maps the other processes' (CUDA IPC;
+    shared memory on the CPU) and keeps them for every call, so every
+    process of the group builds together, and raises where a mapping
+    fails."""
     if KEY_BITS % width or width > 16:
         # width=32 would need 2^32 digit-count bins and a sentinel digit
         # beyond uint32 -- use sort_full on one device.
@@ -151,12 +159,6 @@ def build_distributed_sort(
         raise ValueError(f"exchange must be one of {_VALID_EXCHANGE}")
     if strategy is not None and strategy not in _VALID_STRATEGY:
         raise ValueError(f"strategy must be one of {_VALID_STRATEGY}, got {strategy!r}")
-    if mesh.group is not None and exchange in _PEER_MEMORY:
-        raise NotImplementedError(
-            f"exchange={exchange!r} stores into peer memory, which a process-group mesh "
-            "would reach through CUDA IPC: not ported yet (ROADMAP A6, B6 and B7 across "
-            "processes); use 'alltoall', 'overflow' or 'gather'"
-        )
     nchips = mesh.shape[axis]
     if exchange == "auto":
         # gather is exact and fastest for small shards; alltoall scales.
@@ -181,6 +183,9 @@ def build_distributed_sort(
             "fuse_rounds requires exchange in ('alltoall', 'overflow', "
             f"'rdma'); got exchange={exchange!r}"
         )
+    peers = None
+    if mesh.group is not None and exchange in _PEER_MEMORY:
+        peers = PeerBuffers(mesh, n_local)
 
     def fn(shards):
         shards = list(shards)
@@ -193,13 +198,13 @@ def build_distributed_sort(
         if fuse_rounds:
             return _fused_sort_shard(
                 shards, width=width, exchange=exchange, capacity=capacity,
-                strategy=strategy, nsteps=nsteps, mesh=mesh,
+                strategy=strategy, nsteps=nsteps, mesh=mesh, peers=peers,
             )
         overflow = [torch.zeros((), dtype=torch.int32, device=s.device) for s in shards]
         for step in range(nsteps):
             shards, ovf = _round_fn(
                 shards, offset=step * width, width=width, exchange=exchange,
-                capacity=capacity, strategy=strategy, mesh=mesh,
+                capacity=capacity, strategy=strategy, mesh=mesh, peers=peers,
             )
             overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
         return shards, psum(overflow, mesh)

@@ -44,6 +44,9 @@ every rank of axis ``"x"`` in a tuple of ``torch.device``s.
     the collectives copy to host memory and back, explicitly, which waits
     for the card by nature, and count the bytes in :data:`staged_bytes`.
     The mesh never chooses or switches the backend itself.
+  * One-time host exchanges (the cards' UUIDs here, the receive buffers'
+    handles of :mod:`.peer_memory`) go over a gloo group of the same
+    processes (:func:`side_group`), never through NCCL.
 """
 
 from __future__ import annotations
@@ -75,6 +78,11 @@ class KeyMesh:
     @property
     def size(self) -> int:
         return len(self.devices) * self.processes
+
+    @property
+    def ranks(self) -> range:
+        """The global ranks this process holds, local rank i at ``first + i``."""
+        return range(self.first, self.first + len(self.devices))
 
 
 @dataclass(frozen=True)
@@ -151,21 +159,34 @@ def _card_uuid(device: torch.device) -> str | None:
     return None if uuid is None else str(uuid)
 
 
-def _exchange_once(group, value) -> list:
-    """Every process's ``value``, gathered over gloo: over the group itself,
-    or a gloo group of the same processes made for the purpose, so that no
-    NCCL call comes before the mesh's checks."""
-    side = group
-    if dist.get_backend(group) != "gloo":
-        side = dist.new_group(dist.get_process_group_ranks(group), backend="gloo",
-                              use_local_synchronization=True)
-    try:
-        seen = [None] * dist.get_world_size(group)
-        dist.all_gather_object(seen, value, group=side)
-    finally:
-        if side is not group:
-            dist.destroy_process_group(side)
+_SIDE_GROUPS: dict = {}  # an NCCL group -> its gloo side group, made once
+
+
+def side_group(group):
+    """A gloo group of ``group``'s processes for one-time host exchanges:
+    the group itself where it is gloo, else one made for the purpose the
+    first time and kept, so that no such exchange is an NCCL call.  Made
+    once: a group made again over the same ranks takes the same name, and
+    its rendezvous would read its predecessor's stale keys and hang."""
+    if dist.get_backend(group) == "gloo":
+        return group
+    if group not in _SIDE_GROUPS:
+        _SIDE_GROUPS[group] = dist.new_group(dist.get_process_group_ranks(group),
+                                             backend="gloo", use_local_synchronization=True)
+    return _SIDE_GROUPS[group]
+
+
+def gather_objects(side, value) -> list:
+    """Every process's ``value`` (a picklable object), in process order."""
+    seen = [None] * dist.get_world_size(side)
+    dist.all_gather_object(seen, value, group=side)
     return seen
+
+
+def _exchange_once(group, value) -> list:
+    """Every process's ``value``, gathered over gloo (:func:`side_group`),
+    so that no NCCL call comes before the mesh's checks."""
+    return gather_objects(side_group(group), value)
 
 
 def host_chip_mesh(devices=None, hosts: int | None = None) -> HostChipMesh:

@@ -28,7 +28,19 @@ by ``tags == D``.  Here:
     sender.  Ranks that share a device share its stream, and then nothing is
     recorded.  Across cards the stores go through peer access, enabled once
     for each pair; where ``cudaDeviceCanAccessPeer`` says no, the exchange
-    raises, it never copies through the host.
+    raises, it never copies through the host;
+  * on a process-group mesh (:mod:`.multihost`) the receive buffers are the
+    built sort's :class:`~.peer_memory.PeerBuffers`, made once: the local
+    ranks' own, and the other processes' mapped through CUDA IPC (shared
+    memory on the CPU).  A sender's segments are those of its global rank
+    ``mesh.first + i``.  Two rules order the stores against the receivers'
+    reads: before a sender stores into a buffer, its owner is past its last
+    read of it, and before any receiver reads, every store is complete.
+    The round's gather of the counts is the first point (every process has
+    enqueued its reads before it; over NCCL it is ordered on every card's
+    stream, over gloo it waits for the card), and
+    :func:`.peer_memory.drain` after the sends the second.  Two
+    ``torch.distributed`` calls a round, as for ``alltoall``.
 
 On a CPU tensor :func:`segment_copy` runs :func:`segment_copy_plain`, a loop
 of slice assignments; on CUDA tensors it launches the kernel or raises.
@@ -45,7 +57,8 @@ from ..ops.block_sort import check_keys
 from ..ops.boundaries import digit_counts_sorted
 from ..ops.radix_sort import sort_by_digits
 from .exchange import _run_starts_global, _slice_counts, digits_i32
-from .mesh import all_gather
+from .mesh import KeyMesh, all_gather, global_ranks
+from .peer_memory import PeerBuffers, drain
 
 MAX_RANKS = 256  # receivers one launch addresses (kMaxRanks in csrc/exchange.cu)
 COPY_CHUNK = 1 << 14  # source keys a segment_copy block sends (kCopyChunk)
@@ -188,10 +201,33 @@ def _cuda_devices(senders: list, recv: list) -> tuple[list, list]:
     return send_devs, recv_devs
 
 
-def begin_sends(senders: list, recv: list) -> None:
+def _grouped(mesh: KeyMesh | None) -> bool:
+    return mesh is not None and mesh.group is not None
+
+
+def receivers(shards: list, mesh: KeyMesh | None, peers: PeerBuffers | None):
+    """A round's (P receive buffers in global rank order, this process's
+    own): new ones on a single controller, ``peers``' on a process group."""
+    if not _grouped(mesh):
+        recv = [torch.empty_like(s) for s in shards]
+        return recv, recv
+    if peers is None:
+        raise ValueError("a round on a process-group mesh stores into PeerBuffers made "
+                         "for it by every process of the group; pass peers")
+    if peers.n_local != shards[0].numel() or peers.device != shards[0].device:
+        raise ValueError(f"the receive buffers hold {peers.n_local} keys on {peers.device}, "
+                         f"the shards {shards[0].numel()} on {shards[0].device}")
+    return peers.receivers, peers.local
+
+
+def begin_sends(senders: list, recv: list, mesh: KeyMesh | None = None) -> None:
     """Before the sends of a round: peer access for each pair of cards, and
     every sender's stream waits until each receiver's stream is past the
-    allocation of its buffer (the TPU kernel's entry barrier)."""
+    allocation of its buffer (the TPU kernel's entry barrier).  On a
+    process-group mesh nothing: the round's gather of the counts, before
+    the sends, is that point for every process."""
+    if _grouped(mesh):
+        return
     send_devs, recv_devs = _cuda_devices(senders, recv)
     for a in send_devs:
         for b in recv_devs:
@@ -207,9 +243,13 @@ def begin_sends(senders: list, recv: list) -> None:
                 torch.cuda.current_stream(a).wait_event(ready)
 
 
-def end_sends(senders: list, recv: list) -> None:
+def end_sends(senders: list, recv: list, mesh: KeyMesh | None = None) -> None:
     """After the sends: each receiver's stream waits on every sender (the
-    TPU kernel's send and receive drains)."""
+    TPU kernel's send and receive drains); on a process-group mesh every
+    process's stores complete first (:func:`.peer_memory.drain`)."""
+    if _grouped(mesh):
+        drain(mesh)
+        return
     send_devs, recv_devs = _cuda_devices(senders, recv)
     for a in send_devs:
         done = torch.cuda.Event()
@@ -219,32 +259,37 @@ def end_sends(senders: list, recv: list) -> None:
                 torch.cuda.current_stream(b).wait_event(done)
 
 
-def exchange_round_rdma_raw(sorted_shards: list, offset: int, width: int):
-    """The ragged exchange without the reassembly sort: takes the
-    digit-sorted shards, returns lists ``(tags, flat, overflowed)`` (the
-    contract of ``exchange.exchange_round_alltoall_raw``): ``flat`` is rank
-    c's receive buffer of exactly n_local keys, ``tags`` their digits (no
-    slot carries the sentinel D), ``overflowed`` False."""
+def exchange_round_rdma_raw(sorted_shards: list, offset: int, width: int,
+                            mesh: KeyMesh | None = None, peers: PeerBuffers | None = None):
+    """The ragged exchange without the reassembly sort: takes this
+    process's digit-sorted shards, returns lists ``(tags, flat,
+    overflowed)`` (the contract of ``exchange.exchange_round_alltoall_raw``):
+    ``flat`` is rank c's receive buffer of exactly n_local keys, ``tags``
+    their digits (no slot carries the sentinel D), ``overflowed`` False.
+    On a process-group ``mesh`` the buffers are ``peers``' (the next round
+    writes them again)."""
     n_local = sorted_shards[0].numel()
     counts = [digit_counts_sorted(s, offset, width) for s in sorted_shards]
-    recv = [torch.empty_like(s) for s in sorted_shards]
+    recv, own = receivers(sorted_shards, mesh, peers)
+    _, first = global_ranks(mesh, len(sorted_shards))
     plans: dict[torch.device, torch.Tensor] = {}  # ranks on one device share M
-    begin_sends(sorted_shards, recv)
-    for i, (s, all_counts) in enumerate(zip(sorted_shards, all_gather(counts))):
+    begin_sends(sorted_shards, recv, mesh)
+    for i, (s, all_counts) in enumerate(zip(sorted_shards, all_gather(counts, mesh))):
         if s.device not in plans:
             plans[s.device] = send_matrix(all_counts, n_local)
-        segment_copy(s, segments(plans[s.device], i), recv)
-    end_sends(sorted_shards, recv)
-    tags = [digits_i32(r, offset, width).view(torch.uint32) for r in recv]
-    return tags, recv, [torch.zeros((), dtype=torch.bool, device=r.device) for r in recv]
+        segment_copy(s, segments(plans[s.device], first + i), recv)
+    end_sends(sorted_shards, recv, mesh)
+    tags = [digits_i32(r, offset, width).view(torch.uint32) for r in own]
+    return tags, own, [torch.zeros((), dtype=torch.bool, device=r.device) for r in own]
 
 
 def exchange_round_rdma(shards: list, offset: int, width: int, *,
-                        strategy: str | None = None):
+                        strategy: str | None = None, mesh: KeyMesh | None = None,
+                        peers: PeerBuffers | None = None):
     """One distributed digit round through the ragged exchange.  Returns
     (new shards, overflowed per rank): raggedness leaves no capacity to
     overflow.  With no slack the stable reassembly is a stable digit sort of
     each receive buffer."""
     sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
-    _, flat, overflowed = exchange_round_rdma_raw(sorted_shards, offset, width)
+    _, flat, overflowed = exchange_round_rdma_raw(sorted_shards, offset, width, mesh, peers)
     return [sort_by_digits(f, offset, width, strategy=strategy) for f in flat], overflowed

@@ -28,7 +28,11 @@ drained everything.  Here:
     is the same;
   * the receive layout is (source, group)-major with ascending in-group
     rank and no slack, so a stable digit sort of the receive buffer (the
-    port's ``sort_by_digits``) is the round's reassembly, as for ``rdma``.
+    port's ``sort_by_digits``) is the round's reassembly, as for ``rdma``;
+  * on a process-group mesh the receivers, the sender's global index and
+    the ordering of the stores are those of :mod:`.rdma_exchange`: the
+    built sort's :class:`~.peer_memory.PeerBuffers`, ``mesh.first + i``, the
+    gather of the histograms before the sends and a drain after them.
 
 Width is capped at MAX_WIDTH = 8: the schedule needs counts per group and
 digit.  n_local must be a multiple of the tile (``sort_distributed`` rounds
@@ -53,9 +57,10 @@ from ..ops.block_sort import check_keys
 from ..ops.digit_sort import sort_by_digits_small_emulated
 from ..ops.radix_sort import sort_by_digits
 from .exchange import _run_starts_global, _slice_counts, digits_i32
-from .mesh import all_gather
+from .mesh import KeyMesh, all_gather, global_ranks
+from .peer_memory import PeerBuffers
 from .rdma_exchange import (
-    begin_sends, check_receivers, end_sends, segment_copy, segment_copy_plain,
+    begin_sends, check_receivers, end_sends, receivers, segment_copy, segment_copy_plain,
 )
 
 MAX_TILE = 1 << 14  # keys a block ranks (kMaxTile in csrc/exchange.cu)
@@ -207,13 +212,16 @@ def group_sort(x: torch.Tensor, tile: int, offset: int, width: int) -> torch.Ten
     return stage
 
 
-def exchange_round_rdma_overlapped(shards: list, offset: int, width: int, *,
-                                   tile: int, serial: bool = False,
-                                   strategy: str | None = None):
-    """One distributed digit round through the overlapped exchange.
-    Returns (new shards, overflowed per rank, all False).  Requires
-    ``width <= 8`` and ``n_local`` a multiple of ``tile``; ``serial=True``
-    sorts every group before any send (the A/B mode)."""
+def exchange_round_rdma_overlapped_raw(shards: list, offset: int, width: int, *,
+                                       tile: int, serial: bool = False,
+                                       mesh: KeyMesh | None = None,
+                                       peers: PeerBuffers | None = None) -> list:
+    """The overlapped exchange without the reassembly sort: this process's
+    receive buffers, each of exactly n_local keys in the (source,
+    group)-major layout.  Requires ``width <= 8`` and ``n_local`` a
+    multiple of ``tile``; ``serial=True`` sorts every group before any send
+    (the A/B mode).  On a process-group ``mesh`` the buffers are
+    ``peers``' (the next round writes them again)."""
     validate_digit_range(offset, width)
     if width > MAX_WIDTH:
         raise ValueError(
@@ -226,18 +234,32 @@ def exchange_round_rdma_overlapped(shards: list, offset: int, width: int, *,
     if n_local % tile:
         raise ValueError(f"n_local {n_local} must be a multiple of tile {tile}")
     hists = [_group_hist(s, offset, width, tile) for s in shards]
-    recv = [torch.empty_like(s) for s in shards]
+    recv, own = receivers(shards, mesh, peers)
+    _, first = global_ranks(mesh, len(shards))
     plans: dict[torch.device, tuple] = {}  # ranks on one device share the schedule
-    begin_sends(shards, recv)
-    for i, (s, all_counts_g) in enumerate(zip(shards, all_gather(hists))):
+    begin_sends(shards, recv, mesh)
+    for i, (s, all_counts_g) in enumerate(zip(shards, all_gather(hists, mesh))):
         if s.device not in plans:
             plans[s.device] = overlap_schedule(all_counts_g, n_local)
         start, dst_start = plans[s.device]
-        sched = torch.stack([start[i], dst_start[i]])
+        sched = torch.stack([start[first + i], dst_start[first + i]])
         if serial:
             segment_copy(group_sort(s, tile, offset, width), group_segments(sched, tile), recv)
         else:
             group_sort_send(s, tile, offset, width, sched, recv)
-    end_sends(shards, recv)
+    end_sends(shards, recv, mesh)
+    return own
+
+
+def exchange_round_rdma_overlapped(shards: list, offset: int, width: int, *,
+                                   tile: int, serial: bool = False,
+                                   strategy: str | None = None,
+                                   mesh: KeyMesh | None = None,
+                                   peers: PeerBuffers | None = None):
+    """One distributed digit round through the overlapped exchange.
+    Returns (new shards, overflowed per rank, all False); see
+    :func:`exchange_round_rdma_overlapped_raw`."""
+    recv = exchange_round_rdma_overlapped_raw(shards, offset, width, tile=tile, serial=serial,
+                                              mesh=mesh, peers=peers)
     out = [sort_by_digits(r, offset, width, strategy=strategy) for r in recv]
     return out, [torch.zeros((), dtype=torch.bool, device=r.device) for r in recv]

@@ -4,10 +4,14 @@ counterparts of tests/test_multihost.py, the export of every public name of
 the JAX package's ``parallel``, ``host_chip_mesh``, and the mesh paths over a
 gloo group of one process holding 8 CPU ranks (a file store in
 ``tmp_path``), which must give the single-controller ``[cpu] * 8`` mesh's
-bytes, rank by rank.  tests/test_torch_multiprocess.py takes the same mesh
-across real processes."""
+bytes, rank by rank: the whole sorts, and the raw rounds of the peer-memory
+exchanges (B6, B7), whose receive buffers (``parallel/peer_memory.py``, a
+shared-memory file a rank on the CPU) must hold every key at its global
+place.  tests/test_torch_multiprocess.py takes the same mesh across real
+processes."""
 
 import ast
+import os
 import types
 from pathlib import Path
 
@@ -22,8 +26,13 @@ import gpu_radix_sort_tpu_torch.parallel as port_parallel
 from gpu_radix_sort_tpu.parallel import host_chip_mesh as jax_host_chip_mesh
 from gpu_radix_sort_tpu.utils.keygen import Pcg32
 from gpu_radix_sort_tpu_torch.parallel import distributed as pd
+from gpu_radix_sort_tpu_torch.kernels import build
+from gpu_radix_sort_tpu_torch.ops.radix_sort import sort_by_digits
 from gpu_radix_sort_tpu_torch.parallel import mesh as pm
+from gpu_radix_sort_tpu_torch.parallel import peer_memory
 from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
+from gpu_radix_sort_tpu_torch.parallel import rdma_exchange as rx
+from gpu_radix_sort_tpu_torch.parallel import rdma_overlap as ov
 from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
 from gpu_radix_sort_tpu_torch.parallel.multihost import (
     initialize_distributed,
@@ -232,10 +241,131 @@ def test_group_of_one_process_matches_the_single_controller(group_mesh, path):
     assert pm.staged_bytes == 0  # a CPU mesh stages nothing
 
 
+@pytest.fixture
+def shm_root(tmp_path, monkeypatch):
+    """The shared-memory plane's directory, empty, for this test alone."""
+    root = tmp_path / "shm"
+    root.mkdir()
+    monkeypatch.setattr(peer_memory, "SHM_ROOT", str(root))
+    return root
+
+
 @pytest.mark.parametrize("exchange", ["rdma", "rdma_overlap"])
-def test_group_mesh_rejects_the_peer_memory_exchanges(group_mesh, exchange):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pd.build_distributed_sort(group_mesh, 1024, exchange=exchange)
+def test_group_mesh_rejects_the_peer_memory_exchanges(group_mesh, shm_root, exchange):
+    """The two exchanges that store into the peers' receive buffers, which
+    raised on a process-group mesh until they were ported, now build there
+    and give the single controller's bytes rank by rank, twice from one
+    build (its receive buffers are reused); the shared-memory files are
+    gone once the sort is built."""
+    n_local = 2048
+    keys = torch.from_numpy(Pcg32(state=5).fill(n_local * P))
+    fn = pd.build_distributed_sort(group_mesh, n_local, exchange=exchange, overlap_tile=1024)
+    assert list(shm_root.iterdir()) == []
+    want, _ = pd.build_distributed_sort(pm.key_mesh([CPU] * P), n_local, exchange=exchange,
+                                        overlap_tile=1024)(pm.shard(keys, group_mesh))
+    for _ in range(2):
+        got, overflow = fn(pm.shard(keys, group_mesh))
+        assert int(overflow) == 0
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    np.testing.assert_array_equal(torch.cat(got).numpy(), np.sort(keys.numpy()))
+    with pytest.raises(ValueError, match="shards"):
+        fn(pm.shard(keys, group_mesh)[1:])
+    assert list(shm_root.iterdir()) == []
+
+
+def _skewed(n: int, seed: int = 3) -> torch.Tensor:
+    """Keys whose digit (bits 8-15) follows Zipf(1.3): the segments run from
+    one rank's whole shard to empty."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.zipf(1.3, n) % (1 << 16)).astype(np.uint32) << np.uint32(8))
+
+
+@pytest.mark.parametrize("offsets", [None, [1, 2, 3, 0, 1, 2, 3, 1]], ids=["aligned", "shifted"])
+@pytest.mark.parametrize("kernel", ["B6", "B7"])
+def test_group_mesh_raw_rounds_match_the_single_controller(group_mesh, shm_root, kernel,
+                                                           offsets):
+    """One exchange round before its reassembly: the receive buffers of the
+    process-group round (local rank i is global rank ``first + i``; the
+    buffers at the given word offsets) equal the single controller's, key
+    for key, so every store landed at its global place."""
+    n_local = 2048 if kernel == "B7" else 1111
+    x = _skewed(n_local * P)
+    peers = peer_memory.PeerBuffers(group_mesh, n_local, offsets=offsets)
+    if kernel == "B6":
+        sorted_ = [sort_by_digits(s, 8, 8) for s in pm.shard(x, group_mesh)]
+        _, got, _ = rx.exchange_round_rdma_raw(sorted_, 8, 8, group_mesh, peers)
+        _, want, _ = rx.exchange_round_rdma_raw([s.clone() for s in sorted_], 8, 8)
+    else:
+        shards = pm.shard(x, group_mesh)
+        got = ov.exchange_round_rdma_overlapped_raw(shards, 8, 8, tile=1024, mesh=group_mesh,
+                                                    peers=peers)
+        want = ov.exchange_round_rdma_overlapped_raw(shards, 8, 8, tile=1024)
+    assert got is peers.local and [g.numel() for g in got] == [n_local] * P
+    assert [g.data_ptr() % 16 for g in got] == [4 * o for o in offsets or [0] * P]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert list(shm_root.iterdir()) == []
+
+
+@pytest.mark.parametrize("where", ["here", "there"])
+def test_a_failed_mapping_raises_everywhere_and_leaves_nothing_behind(
+        group_mesh, shm_root, tmp_path, monkeypatch, where):
+    """A process that cannot map a peer's buffer (here: a second process's
+    files lie on no host this one sees; there: that process reports such a
+    failure) makes every process raise after the second exchange, and this
+    process's files are gone either way."""
+    two = pm.KeyMesh((CPU,) * 4, group=group_mesh.group, first=0, processes=2)
+    peer = tmp_path / "peer"
+    peer.mkdir()
+    if where == "there":  # the peer's buffers exist, and it fails to map this one's
+        for g in range(4, 8):
+            torch.from_file(str(peer / f"rank{g}"), shared=True, size=1024, dtype=torch.int32)
+    exchanged = []
+
+    def gather(side, value):
+        exchanged.append(value)
+        if len(exchanged) == 1:  # the handles
+            assert [os.path.basename(h) for h, _ in value] == ["rank0", "rank1", "rank2", "rank3"]
+            return [value, [(str(peer / f"rank{g}"), 0) for g in range(4, 8)]]
+        return [value, "process 1: no receive buffer" if where == "there" else None]
+
+    monkeypatch.setattr(peer_memory, "gather_objects", gather)
+    with pytest.raises(RuntimeError, match="could not map"):
+        peer_memory.PeerBuffers(two, 1024)
+    assert (exchanged[1] is None) == (where == "there")
+    assert list(shm_root.iterdir()) == []
+
+
+@pytest.mark.parametrize("entry", ["grs_ipc_alloc", "grs_ipc_open"])
+def test_an_ipc_failure_raises(monkeypatch, entry):
+    """A CUDA status other than 0 from the IPC entry points raises (here
+    from a stand-in for the kernel library: this host has no card)."""
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 201 if name == entry else 0
+
+        @staticmethod
+        def grs_error_string(status):
+            return b"invalid device context"
+
+    monkeypatch.setattr(build, "load", lambda: Lib())
+    cuda0 = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="CUDA error 201"):
+        if entry == "grs_ipc_alloc":
+            peer_memory._alloc(cuda0, None, "rank0", 16, True)
+        else:
+            peer_memory._open(cuda0, bytes(64), 16)
+
+
+def test_peer_buffers_serve_a_process_group_mesh_only(group_mesh, shm_root):
+    with pytest.raises(ValueError, match="process-group"):
+        peer_memory.PeerBuffers(pm.key_mesh([CPU] * P), 16)
+    shards = pm.shard(_skewed(16 * P), group_mesh)
+    with pytest.raises(ValueError, match="pass peers"):
+        rx.exchange_round_rdma_raw(shards, 8, 8, group_mesh)
+    with pytest.raises(ValueError, match="hold 32 keys"):
+        rx.exchange_round_rdma_raw(shards, 8, 8, group_mesh,
+                                   peer_memory.PeerBuffers(group_mesh, 32))
 
 
 HOST_ENTRIES = {
@@ -298,6 +428,24 @@ def test_staging_through_host_memory_keeps_every_byte(group_mesh, monkeypatch):
     cap = ss.default_pair_capacity(1111, P, 1.5)
     windows = P * P * cap * 4 * (1 + 3)  # keys and three payload lanes, one way
     assert staged > 2 * windows
+
+
+def test_the_gloo_side_group_of_an_nccl_group_is_made_once(group_mesh, monkeypatch):
+    """The one-time exchanges of an NCCL group (the mesh's checks, every
+    peer-memory build) share one gloo side group, made at the first: a
+    second group over the same ranks takes the first one's name, and across
+    processes its rendezvous reads the first one's stale keys and hangs."""
+    made = []
+    real_new_group = dist.new_group
+    monkeypatch.setattr(pm, "_SIDE_GROUPS", {}, raising=False)
+    monkeypatch.setattr(pm.dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(pm.dist, "new_group",
+                        lambda *a, **k: made.append(k) or real_new_group(*a, **k))
+    for value in ("uuid", "handles", "outcome"):
+        assert pm._exchange_once(group_mesh.group, value) == [value]
+    assert len(made) == 1 and made[0]["backend"] == "gloo"
+    assert pm.side_group(group_mesh.group) is pm.side_group(group_mesh.group)
+    assert len(made) == 1
 
 
 @pytest.mark.parametrize("seen,match", [

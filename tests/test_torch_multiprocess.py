@@ -14,12 +14,20 @@ rank, byte for byte, they must equal:
     tests/mp_child.py's 977 keys (XLA sorts on the JAX side, never a
     Pallas kernel);
   * the port's single-controller ``[cpu] * P`` mesh, for the LSD
-    ``overflow`` and ``gather`` exchanges, PSRS "merge", the key-value and
-    64-bit sample sorts and the ``count`` aggregate.
+    ``overflow``, ``gather``, ``rdma`` and ``rdma_overlap`` exchanges, PSRS
+    "merge", the key-value and 64-bit sample sorts and the ``count``
+    aggregate.
 
-The children also check the error paths (``rdma`` and ``rdma_overlap``
-raise NotImplementedError on a process-group mesh, the host entries
-ValueError) and count the ``torch.distributed`` calls each path makes: the
+The two peer-memory exchanges store into the other processes' receive
+buffers (shared memory on the CPU, CUDA IPC on a card); their ranks joined
+in rank order must also equal JAX's ``sort_distributed`` of the same keys
+through its ``gather`` exchange on XLA sorts (never JAX's ``rdma`` paths,
+Pallas interpret-mode kernels), and np.sort, and no process may leave a
+shared-memory file behind.
+
+The children also check the error paths (the host entries raise
+ValueError on a process-group mesh) and count the ``torch.distributed``
+calls of each path's call (the build's one-time exchanges aside): the
 counterpart of JAX's ``bench/podscale.py`` guard, which holds that the
 sharded programs do not grow with P.  The port compiles nothing, so what
 could grow is the number of collectives; it must be the same at (2, 4) and
@@ -60,19 +68,21 @@ _spec.loader.exec_module(child)
 
 # torch.distributed calls of one call of each path's function, in every
 # process whatever its (W, L): LSD w8 = 4 rounds of (counts all_gather +
-# all_to_all; overflow two all_to_alls; gather one all_gather) + the
-# overflow psum; PSRS = samples, keys (and payload), counts, overflow;
-# hash aggregate = samples, overflow, keys, aggregates, counts.
+# all_to_all; overflow two all_to_alls; gather one all_gather; rdma and
+# rdma_overlap the drain's barrier) + the overflow psum; PSRS = samples,
+# keys (and payload), counts, overflow; hash aggregate = samples, overflow,
+# keys, aggregates, counts.
 COLLECTIVE_CALLS = {
-    "lsd alltoall": 9, "lsd overflow": 13, "lsd gather": 5,
+    "lsd alltoall": 9, "lsd overflow": 13, "lsd gather": 5, "lsd rdma": 9,
+    "lsd rdma_overlap": 9,
     "sample sort": 4, "sample merge": 4, "sample kv": 5, "sample 64": 4,
     "aggregate sum": 5, "aggregate count": 5,
 }
 SINGLE_CONTROLLER_PATHS = [
-    "lsd overflow", "lsd gather", "sample merge", "sample kv", "sample 64", "aggregate count",
+    "lsd overflow", "lsd gather", "lsd rdma", "lsd rdma_overlap", "sample merge", "sample kv",
+    "sample 64", "aggregate count",
 ]
 ERRORS = [
-    "build_distributed_sort rdma", "build_distributed_sort rdma_overlap",
     "sort_distributed", "sort_distributed_sample", "sort_key_value_distributed",
     "sort_distributed_64", "sort_key_value_distributed_64", "hash_aggregate_distributed",
 ]
@@ -218,7 +228,7 @@ def _single_controller(path: str, P: int):
     kind, what = path.split()
     if kind == "lsd":
         fn = pd.build_distributed_sort(mesh, child.N_LOCAL, width=8, exchange=what,
-                                       capacity_factor=1.5)
+                                       capacity_factor=1.5, overlap_tile=child.OVERLAP_TILE)
         out, overflow = fn(data["keys"])
         return np.full(P, child.N_LOCAL), {"keys": joined(out)}, overflow
     if path == "sample merge":
@@ -246,8 +256,33 @@ def test_paths_across_processes_match_the_single_controller(runs, W, L, path):
     _check_against(arrays, path, W * L, *_single_controller(path, W * L))
 
 
+@pytest.mark.parametrize("exchange", ["rdma", "rdma_overlap"])
+@pytest.mark.parametrize("W,L", CASES)
+def test_peer_memory_exchanges_across_processes_match_jax_gather(runs, W, L, exchange):
+    """The ranks joined in rank order against JAX's exact gather exchange
+    (XLA sorts) and np.sort: the per-rank split may differ between
+    exchanges, the global bytes may not."""
+    arrays, _ = runs(W, L)
+    P = W * L
+    keys = child.inputs(P)["keys"]
+    joined = np.concatenate([_rank(arrays, f"lsd {exchange}", g)[1]["keys"] for g in range(P)])
+    want = jdist.sort_distributed(keys, mesh=_jax_mesh(P), width=8, exchange="gather",
+                                  strategy="xla")
+    _same(joined, np.asarray(want))
+    _same(joined, np.sort(keys))
+
+
+@pytest.mark.parametrize("W,L", CASES)
+def test_peer_memory_leaves_no_shared_memory_behind(runs, W, L):
+    _, reports = runs(W, L)
+    assert [r["shm_left"] for r in reports] == [[]] * W
+
+
 @pytest.mark.parametrize("W,L", CASES)
 def test_process_group_mesh_rejects_peer_memory_and_host_entries(runs, W, L):
+    """Every host entry raises ValueError on a process-group mesh (the
+    peer-memory exchanges, which raised here before they were ported, now
+    run: see the tests above)."""
     _, reports = runs(W, L)
     for report in reports:
         assert report["errors"] == ERRORS

@@ -290,7 +290,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "data/device.py", "parallel/bucket_reader.py", "parallel/storage_sort.py",
         "parallel/serverless.py", "parallel/worker_main.py",
         "parallel/sample_sort.py", "parallel/pipeline.py", "bench/harness.py",
-        "bench/analyze.py", "utils/native.py", "parallel/multihost.py")} <= checked
+        "bench/analyze.py", "utils/native.py", "parallel/multihost.py",
+        "parallel/peer_memory.py", "dryrun.py")} <= checked
     for path in files:
         for module in _imported_modules(path):
             top = module.split(".")[0]

@@ -3,12 +3,16 @@ port's process-group key mesh.
 
 Run in W OS processes, each holding L CPU ranks of one key mesh of P = W * L
 ranks, joined by ``torch.distributed`` over gloo through a file store (no
-TCP port).  Each process runs the mesh LSD sort, the sample sort (PSRS) and
-the hash aggregate through their ``build_*`` functions on its own shards of
-inputs that every process makes alike from a seed, counts the
-``torch.distributed`` calls each path makes, checks the error paths, and
-writes its ranks' outputs to ``<out_dir>/<process_id>.npz`` and its counts
-to ``<out_dir>/<process_id>.json`` for the parent to compare.
+TCP port).  Each process runs the mesh LSD sort (among others through the
+``rdma`` and ``rdma_overlap`` exchanges, whose kernels' plain versions store
+into the other processes' receive buffers through shared memory), the
+sample sort (PSRS) and the hash aggregate through their ``build_*``
+functions on its own shards of inputs that every process makes alike from a
+seed, counts the ``torch.distributed`` calls of each path's call (not of
+its build), checks the error paths and that the shared-memory plane left
+nothing behind, and writes its ranks' outputs to
+``<out_dir>/<process_id>.npz`` and its counts to
+``<out_dir>/<process_id>.json`` for the parent to compare.
 
 Usage: python tests/torch_mp_child.py <process_id> <num_processes> <ranks> <store> <out_dir>
 
@@ -17,6 +21,7 @@ named test_* so pytest does not collect it.
 """
 
 import json
+import os
 import sys
 
 import numpy as np
@@ -26,6 +31,7 @@ import torch.distributed as dist
 N_LOCAL = 2048  # keys a rank, as tests/mp_child.py
 AGG_LOCAL = 1024  # hash-aggregate rows a rank, as tests/mp_child.py
 LANES = 2  # payload lanes of the key-value sample sort
+OVERLAP_TILE = 1024  # rdma_overlap's group tile: two groups a rank
 
 # every torch.distributed collective the port could call
 COLLECTIVES = (
@@ -75,6 +81,7 @@ def main() -> None:
     torch.set_num_threads(1)
 
     from gpu_radix_sort_tpu_torch.parallel import distributed as pd
+    from gpu_radix_sort_tpu_torch.parallel import peer_memory
     from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
     from gpu_radix_sort_tpu_torch.parallel import sample_sort as ss
     from gpu_radix_sort_tpu_torch.parallel.mesh import shard
@@ -82,6 +89,8 @@ def main() -> None:
         initialize_distributed, pod_key_mesh, process_shard_bounds,
     )
 
+    peer_memory.SHM_ROOT = os.path.join(out_dir, f"shm{pid}")
+    os.makedirs(peer_memory.SHM_ROOT)
     active = initialize_distributed(f"file://{store}", W, pid, backend="gloo")
     assert active == (W > 1), active
     mesh = pod_key_mesh([torch.device("cpu")] * L)
@@ -95,36 +104,55 @@ def main() -> None:
     local = {k: shard(v, mesh) for k, v in data.items()}
     ones = [torch.ones(AGG_LOCAL, dtype=torch.bool)] * L
 
+    # each builds its path's function (every process together) and returns
+    # the call whose outputs and torch.distributed calls are recorded
     def lsd(exchange):
         fn = pd.build_distributed_sort(mesh, N_LOCAL, width=8, exchange=exchange,
-                                       capacity_factor=1.5)
-        out, overflow = fn(local["keys"])
-        return {"keys": out}, [torch.full((1,), N_LOCAL)] * L, overflow
+                                       capacity_factor=1.5, overlap_tile=OVERLAP_TILE)
+
+        def run():
+            out, overflow = fn(local["keys"])
+            return {"keys": out}, [torch.full((1,), N_LOCAL)] * L, overflow
+        return run
 
     def sample(reassembly):
         fn, _ = ss.build_sample_sort(mesh, N_LOCAL, capacity_factor=1.5, reassembly=reassembly)
-        out, counts, overflow = fn(local["keys"])
-        return {"keys": out}, counts, overflow
+
+        def run():
+            out, counts, overflow = fn(local["keys"])
+            return {"keys": out}, counts, overflow
+        return run
 
     def sample_kv():
         fn, _ = ss.build_sample_sort_kv(mesh, N_LOCAL, LANES, capacity_factor=1.5)
-        k, v, counts, overflow = fn(local["keys"], local["vals"])
-        return {"keys": k, "vals": v}, counts, overflow
+
+        def run():
+            k, v, counts, overflow = fn(local["keys"], local["vals"])
+            return {"keys": k, "vals": v}, counts, overflow
+        return run
 
     def sample_64():
         fn, _ = ss.build_sample_sort_64(mesh, N_LOCAL, capacity_factor=1.5)
-        hi, lo, counts, overflow = fn(local["hi"], local["keys"])
-        return {"hi": hi, "lo": lo}, counts, overflow
+
+        def run():
+            hi, lo, counts, overflow = fn(local["hi"], local["keys"])
+            return {"hi": hi, "lo": lo}, counts, overflow
+        return run
 
     def aggregate(op):
         fn, _ = pp.build_hash_aggregate(mesh, AGG_LOCAL, op=op)
-        gk, ga, ng, overflow = fn(local["agg_keys"], local["agg_vals"], ones)
-        return {"keys": gk, "aggs": ga}, ng, overflow
+
+        def run():
+            gk, ga, ng, overflow = fn(local["agg_keys"], local["agg_vals"], ones)
+            return {"keys": gk, "aggs": ga}, ng, overflow
+        return run
 
     paths = {
         "lsd alltoall": lambda: lsd("alltoall"),
         "lsd overflow": lambda: lsd("overflow"),
         "lsd gather": lambda: lsd("gather"),
+        "lsd rdma": lambda: lsd("rdma"),
+        "lsd rdma_overlap": lambda: lsd("rdma_overlap"),
         "sample sort": lambda: sample("sort"),
         "sample merge": lambda: sample("merge"),
         "sample kv": sample_kv,
@@ -134,7 +162,8 @@ def main() -> None:
     }
     calls = count_collectives()
     arrays, report = {}, {"calls": {}, "overflow": {}, "errors": []}
-    for name, run in paths.items():
+    for name, build in paths.items():
+        run = build()
         calls[0] = 0
         outs, counts, overflow = run()
         report["calls"][name] = calls[0]
@@ -145,11 +174,6 @@ def main() -> None:
             for what, bufs in outs.items():
                 arrays[f"{name}|{mesh.first + i}|{what}"] = bufs[i][:c].numpy()
 
-    for exchange in ("rdma", "rdma_overlap"):
-        try:
-            pd.build_distributed_sort(mesh, N_LOCAL, exchange=exchange)
-        except NotImplementedError:
-            report["errors"].append(f"build_distributed_sort {exchange}")
     import gpu_radix_sort_tpu_torch as port
 
     keys, vals = data["keys"], data["vals"]
@@ -172,6 +196,7 @@ def main() -> None:
             if "build_" in str(e):
                 report["errors"].append(name)
 
+    report["shm_left"] = os.listdir(peer_memory.SHM_ROOT)
     np.savez(f"{out_dir}/{pid}.npz", **arrays)
     with open(f"{out_dir}/{pid}.json", "w") as f:
         json.dump(report, f)
