@@ -124,7 +124,19 @@
    64-bit rows and the kv and 64-bit storage rows none, as JAX's run no
    Pallas kernel; the other mesh and storage rows some kernel); and the
    harness's full_sort_u32 median at 256Mi within 15% of time_cuda of the
-   same sort in the same process.
+   same sort in the same process;
+15. drives the out-of-core runner
+   (gpu_radix_sort_tpu_torch/benchmarks/run_out_of_core.py, out_of_core_path)
+   in this process through its ``main`` at the published widths and a cut
+   depth: 2^27 PCG32 keys (4-byte rows) and 2^23 rows with 64-byte payloads
+   (68-byte rows), width 8, two workers, on the file backend in
+   _ooc_smoke/ (removed after), each with the launch counts set to 0 just
+   before and read just after (B5 16 times for the keys, no kernel for the
+   kv rows, whose digit order is a torch.sort as JAX's is an XLA sort),
+   exit 0 and "exact" true required; logs its JSON line, its SortStats
+   phases, a breakdown of its host clock (staging, the workers' file
+   reads, sorts on the card and bucket writes, the rest, the proof), its
+   peak host memory, disk and device memory.
 
 Prints one JSON line of per-kernel results, then, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises and exits non-zero.
@@ -171,6 +183,16 @@ card, making its inputs and oracles beside the build.
     python3 chip_smoke.py --bench
 
 builds the kernels and runs only the harness step (14. above) on one card.
+
+    python3 chip_smoke.py --out-of-core
+
+builds the kernels and runs the out-of-core runner (15. above) at its two
+published configurations, unchanged: 1Gi keys, and 256Mi rows with 64-byte
+payloads (width 8, one worker).  Before each it checks the mount's free
+disk (the input and one round's outputs, twice the rows' bytes, and 1 GiB)
+and the host's available memory (three times the rows' bytes, and 4 GiB),
+and fails with the numbers if either is short.  The plain run never runs
+it: it takes ~8 minutes.
 """
 
 from __future__ import annotations
@@ -2246,6 +2268,183 @@ def bench_path(dev, card: str) -> dict:
     return res
 
 
+# -- the out-of-core runner (benchmarks/run_out_of_core.py) ------------------
+
+OOC_DIR = "_ooc_smoke"  # the runner's mount (listed in .gitignore)
+OOC_WIDTH = 8
+# Step 15: the runner's two configurations at their widths (4-byte keys;
+# 68-byte rows of 64-byte payloads), their rows cut to fit the script's time.
+N_OOC_KEYS = 1 << 27  # 512 MiB: the published 1Gi keys cut by 8
+N_OOC_KV = 1 << 23  # 544 MiB: the published 256Mi rows cut by 32
+OOC_WORKERS = 2
+# --out-of-core: the published configurations, unchanged (the JAX runner's
+# docstring, README.md's out-of-core rows): rows, payload bytes.
+OOC_PUBLISHED = ((1 << 30, 0), (1 << 28, 64))
+OOC_DISK_SLACK = 1 << 30  # bytes of free disk over the input and one round's outputs
+OOC_MEM_SLACK = 4 << 30  # bytes of host memory over three copies of the rows
+GiB = 2**30
+
+
+def proc_bytes(path: str, field: str) -> int:
+    """A "field: N kB" line of a /proc file, in bytes: VmRSS of
+    /proc/self/status (this process's resident memory), MemAvailable of
+    /proc/meminfo (the host's available memory)."""
+    with open(path) as f:
+        for line in f:
+            if line.startswith(f"{field}:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError(f"no {field} in {path}")
+
+
+def ooc_room(mount: str, rows: int, payload_bytes: int) -> dict:
+    """Fails, with the numbers, unless ``mount``'s filesystem has room for
+    the input and one round's outputs at once and the host's available
+    memory holds three copies of the rows (a kv worker's shard and its
+    permuted records; the proof's keys and their np.sort)."""
+    data = rows * (4 + payload_bytes)
+    free, avail = shutil.disk_usage(mount).free, proc_bytes("/proc/meminfo", "MemAvailable")
+    need_disk, need_mem = 2 * data + OOC_DISK_SLACK, 3 * data + OOC_MEM_SLACK
+    log(f"out-of-core: {rows} rows of {4 + payload_bytes} bytes ({data / GiB:.1f} GiB): "
+        f"free disk on {mount} {free / GiB:.1f} GiB (needs {need_disk / GiB:.1f}), "
+        f"available host memory {avail / GiB:.1f} GiB (needs {need_mem / GiB:.1f})")
+    if free < need_disk:
+        fail(f"out-of-core: {need_disk / GiB:.1f} GiB of disk needed on {mount}, "
+             f"{free / GiB:.1f} GiB free")
+    if avail < need_mem:
+        fail(f"out-of-core: {need_mem / GiB:.1f} GiB of host memory needed, "
+             f"{avail / GiB:.1f} GiB available")
+    return {"free_disk_gib": free / GiB, "available_memory_gib": avail / GiB}
+
+
+def ooc_name(rows: int, payload_bytes: int) -> str:
+    return f"{'kv' + str(payload_bytes) + 'B' if payload_bytes else 'keys'} {rows}"
+
+
+def ooc_run(card: str, mount: str, rows: int, payload_bytes: int, nworker: int) -> dict:
+    """One in-process run of the port's runner (``main``) at ``rows`` rows
+    of 4 + ``payload_bytes`` bytes, width OOC_WIDTH, ``nworker`` workers,
+    on the card, with the launch counts set to 0 just before and read just
+    after: the keys workers' stable w8 sorts are two B5 passes a worker and
+    round, the kv workers' digit orders a torch.sort (no kernel), as the JAX
+    runner's XLA sorts.  Fails unless it exits 0 with ``exact`` true and
+    those launches.  Samples this process's resident memory and the bytes
+    used on the mount's filesystem every 0.2 s, and breaks the run's host
+    clock into staging, the proof and, inside the workers (which run one
+    at a time), their file reads, their sorts on the card (synchronised)
+    and their bucket writes; the rest of the workers' time is the copies
+    to and from the card and, for kv rows, the permute of the rows.
+    Returns its JSON line with the launches, the peaks, the breakdown and
+    the run's seconds."""
+    import contextlib
+    import io
+    import threading
+
+    from gpu_radix_sort_tpu_torch.benchmarks import run_out_of_core as rooc
+    from gpu_radix_sort_tpu_torch.ops import binning as bn
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.parallel import storage_sort as ss
+
+    counters = {"block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
+                "single_block_sort": sb}
+    expect = dict.fromkeys(counters, 0)
+    if not payload_bytes:
+        expect["binning"] = (32 // OOC_WIDTH) * nworker * -(-OOC_WIDTH // bn.PASS_WIDTH)
+    argv = ["--rows", str(rows), "--payload-bytes", str(payload_bytes), "--width",
+            str(OOC_WIDTH), "--nworker", str(nworker), "--mount", mount]
+    what = f"{rows} rows of {4 + payload_bytes} bytes, w{OOC_WIDTH}, {nworker} workers"
+    used0 = shutil.disk_usage(mount).used
+    peaks = {"rss": proc_bytes("/proc/self/status", "VmRSS"), "disk": 0}
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(0.2):
+            peaks["rss"] = max(peaks["rss"], proc_bytes("/proc/self/status", "VmRSS"))
+            peaks["disk"] = max(peaks["disk"], shutil.disk_usage(mount).used - used0)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    parts = dict.fromkeys(("staging", "file reads", "device sorts", "bucket writes",
+                           "proof"), 0.0)
+
+    def timed(name: str, fn, sync: bool = False):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                parts[name] += time.perf_counter() - t
+        return call
+
+    wrapped = [(rooc, "stage_input", "staging", False), (rooc, "verify_stream", "proof", False),
+               (ss, "fetch_part_refs_u32", "file reads", False),
+               (ss, "fetch_part_refs", "file reads", False),
+               (ss, "sort_partial_counts", "device sorts", True),
+               (ss, "_digit_order_counts", "device sorts", True),
+               (ss, "_write_buckets", "bucket writes", False)]
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in wrapped]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    sampler.start()
+    try:
+        for mod, attr, name, sync in wrapped:
+            setattr(mod, attr, timed(name, getattr(mod, attr), sync))
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = rooc.main(argv)
+        secs = time.perf_counter() - t0
+    finally:
+        stop.set()
+        sampler.join()
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+    got = {k: mod.launches for k, mod in counters.items()}
+    lines = out.getvalue().strip().splitlines()
+    log(f"out-of-core [{card}]: {what}: exit {rc}; its line: {out.getvalue().strip()}")
+    if rc != 0 or len(lines) != 1 or json.loads(lines[0])["exact"] is not True:
+        fail(f"out-of-core {what}: exit {rc}, not exact")
+    if got != expect:
+        fail(f"out-of-core {what}: launches {got}, expected {expect}")
+    res = json.loads(lines[0])
+    workers_s = res["phases"]["workers"]["total_s"]
+    parts["workers' rest"] = workers_s - sum(
+        parts[k] for k in ("file reads", "device sorts", "bucket writes"))
+    res.update(launches={k: v for k, v in got.items() if v}, run_s=secs, breakdown_s=parts,
+               peak_rss_gib=peaks["rss"] / GiB, peak_disk_gib=peaks["disk"] / GiB,
+               peak_device_gib=(torch.cuda.max_memory_allocated() - held) / GiB,
+               nworker=nworker, card=card)
+    phases = ", ".join(f"{k} {v['total_s']:.3f}" for k, v in res["phases"].items()
+                       if isinstance(v, dict))
+    log(f"time [{card}]: out-of-core {what}: {secs:.1f} s in all, sort {res['sort_s']} s "
+        f"({res['rows_per_s']} rows/s, host clock), phases (s): {phases}; breakdown (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + "; launches "
+        f"{res['launches']}; peaks: host resident {res['peak_rss_gib']:.2f} GiB, disk "
+        f"{res['peak_disk_gib']:.2f} GiB over its start (sampled every 0.2 s), device "
+        f"{res['peak_device_gib']:.2f} GiB")
+    return res
+
+
+def out_of_core_path(card: str) -> dict:
+    """Step 15: the runner at its two configurations' widths and cut rows
+    (N_OOC_KEYS keys, N_OOC_KV rows of 64-byte payloads), OOC_WORKERS
+    workers, its mount removed after."""
+    mount = os.path.join(os.path.dirname(os.path.abspath(__file__)), OOC_DIR)
+    shutil.rmtree(mount, ignore_errors=True)
+    os.makedirs(mount)
+    try:
+        return {ooc_name(rows, pb): ooc_run(card, mount, rows, pb, OOC_WORKERS)
+                for rows, pb in ((N_OOC_KEYS, 0), (N_OOC_KV, 64))}
+    finally:
+        shutil.rmtree(mount, ignore_errors=True)
+
+
 # -- the multi-process mesh (parallel/multihost.py) --------------------------
 
 N_MULTIHOST = N_PART  # the four-rank rows' 256Mi PCG32 keys, 64Mi a rank
@@ -3302,6 +3501,8 @@ def main() -> int:
     bench = bench_path(dev, card)
     step_done("bench step")
     del bench["records"]  # in chiprun_out/bench_full.jsonl and printed above
+    out_of_core = out_of_core_path(card)
+    step_done("out-of-core step")
 
     def on_path(res: dict, kernel_name: str) -> dict:
         return {k: v[kernel_name] for k, v in res["launches"].items() if kernel_name in v}
@@ -3371,6 +3572,8 @@ def main() -> int:
                single_call_ms=ms_ds_call, single_call_library_ms=ms_ds_lib_call,
                launches_storage={k: v["digit_sort"] for k, v in st_launches.items()
                                  if "digit_sort" in v},
+               launches_out_of_core={k: v["launches"].get("digit_sort", 0)
+                                     for k, v in out_of_core.items()},
                **rank_info["digit_sort_kernel"]),
         kernel("binning", "binning.cu", "gpu_radix_sort_tpu/ops/pallas_radix.py:205",
                sum(part_launches.values()), err_bin, ms_bin, ms_bin_plain,
@@ -3383,14 +3586,16 @@ def main() -> int:
                launches_sample=on_path(sample, "binning"),
                launches_hash_aggregate=on_path(aggregate, "binning"),
                launches_bench=on_path(bench, "binning"),
-               launches_multihost=mh_launches("binning")),
+               launches_multihost=mh_launches("binning"),
+               launches_out_of_core={k: v["launches"].get("binning", 0)
+                                     for k, v in out_of_core.items()}),
         *(kernel(*k[:9], **k[9]) for k in mesh_kernels),
     ], "sort_full_ms": ms_sort, "torch_sort_ms": ms_torch, "n": N_MAIN,
         "sort_partial_ms": ms_part, "sort_partial_torch_ms": ms_part_torch,
         "kv_digit_sort_ms": ms_kv, "kv_digit_sort_torch_ms": ms_kv_torch,
         "n_partial": N_PART, "peak_mib_partial": peak_part, "kv_u64_table": kv, **mesh,
         "sample": sample, "aggregate": aggregate, "multihost": multihost, "storage": storage,
-        "bench": bench, "steps_s": steps, "card": card}))
+        "bench": bench, "out_of_core": out_of_core, "steps_s": steps, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3768,6 +3973,39 @@ def bench_main() -> int:
     return 0
 
 
+def out_of_core_main() -> int:
+    """``--out-of-core``: the kernels' build and the runner's two published
+    configurations, unchanged (1Gi keys; 256Mi rows with 64-byte payloads;
+    width 8, one worker), each after a check of the mount's free disk and
+    the host's available memory, its mount removed after."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    build.load()
+    mount = os.path.join(os.path.dirname(os.path.abspath(__file__)), OOC_DIR)
+    shutil.rmtree(mount, ignore_errors=True)
+    os.makedirs(mount)
+    res = {}
+    try:
+        for rows, pb in OOC_PUBLISHED:
+            room = ooc_room(mount, rows, pb)
+            res[ooc_name(rows, pb)] = {
+                **ooc_run(card, mount, rows, pb, nworker=1), **room}
+    finally:
+        shutil.rmtree(mount, ignore_errors=True)
+    print(json.dumps({"out_of_core": res}))
+    log(f"chip_smoke --out-of-core: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def multihost_main() -> int:
     """``--multihost``: the kernels' build and the multi-process phases
     alone, their oracles made beside the build."""
@@ -3803,5 +4041,6 @@ if __name__ == "__main__":
         sys.exit(multihost_child(json.loads(sys.argv[2])))
     mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main,
              ("--sample",): sample_main, ("--aggregate",): aggregate_main,
-             ("--bench",): bench_main, ("--multihost",): multihost_main}
+             ("--bench",): bench_main, ("--multihost",): multihost_main,
+             ("--out-of-core",): out_of_core_main}
     sys.exit(mains.get(tuple(sys.argv[1:]), main)())
