@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import build
+from ..utils.timers import span
 from .bits import KEY_DTYPE, sortable_digits, validate_digit_range
 from .block_sort import check_keys, next_pow2
 
@@ -186,19 +187,20 @@ def stage_a(
     """Stage A and the metadata of one pass: the keys and (n,) uint32
     columns padded to whole tiles, each tile sorted stably by the keys'
     digits.  Returns (sorted keys, sorted columns, g_run, sflat), all flat."""
-    n = keys.numel()
-    n_tiles = -(-n // tile)
-    n_pad = n_tiles * tile
-    keys_t = _pad(keys, n_pad, _PAD).view(n_tiles, tile)
-    order, sorted_t, starts = _stage_a(keys_t, offset, width)
-    sorted_cols = tuple(
-        _pad(c, n_pad, 0).view(torch.int32).view(n_tiles, tile).gather(1, order)
-        .view(KEY_DTYPE).reshape(-1)
-        for c in cols
-    )
-    del order
-    g_run, sflat = _binning_metadata(starts, tile)
-    return sorted_t.reshape(-1), sorted_cols, g_run, sflat
+    with span("grs.binning.stage_a"):
+        n = keys.numel()
+        n_tiles = -(-n // tile)
+        n_pad = n_tiles * tile
+        keys_t = _pad(keys, n_pad, _PAD).view(n_tiles, tile)
+        order, sorted_t, starts = _stage_a(keys_t, offset, width)
+        sorted_cols = tuple(
+            _pad(c, n_pad, 0).view(torch.int32).view(n_tiles, tile).gather(1, order)
+            .view(KEY_DTYPE).reshape(-1)
+            for c in cols
+        )
+        del order
+        g_run, sflat = _binning_metadata(starts, tile)
+        return sorted_t.reshape(-1), sorted_cols, g_run, sflat
 
 
 def binning_pass_kv_cols(
@@ -225,7 +227,8 @@ def binning_pass_kv_cols(
     def stage_b(src: torch.Tensor) -> torch.Tensor:
         return bin_runs(sorted_keys, src, g_run, sflat, tile, offset, width)[:n]
 
-    return stage_b(sorted_keys), tuple(stage_b(c) for c in sorted_cols)
+    with span("grs.binning.place"):
+        return stage_b(sorted_keys), tuple(stage_b(c) for c in sorted_cols)
 
 
 def _columns(lanes: torch.Tensor) -> tuple:

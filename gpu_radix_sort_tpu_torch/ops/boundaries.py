@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timers import span
 from .bits import as_tensor, from_int64, to_int64, validate_digit_range
 
 
@@ -54,13 +55,14 @@ def compute_boundaries(
     device = sorted_keys.device
     if sorted_keys.numel() == 0:
         return from_int64(torch.zeros(nb, dtype=torch.int64, device=device))
-    s = _group_starts(sorted_keys, offset, width)
-    g = torch.arange(nb, dtype=torch.int64, device=device)
-    g0 = _digits(sorted_keys[:1], offset, width)[0]
-    b = torch.where((g >= 2) & (g <= g0), s[g0 + 1], s[:nb])
-    group1_empty = s[2] <= s[1]
-    b = torch.where((g == 1) & group1_empty, torch.zeros_like(b), b)
-    return from_int64(b)
+    with span("grs.boundaries"):
+        s = _group_starts(sorted_keys, offset, width)
+        g = torch.arange(nb, dtype=torch.int64, device=device)
+        g0 = _digits(sorted_keys[:1], offset, width)[0]
+        b = torch.where((g >= 2) & (g <= g0), s[g0 + 1], s[:nb])
+        group1_empty = s[2] <= s[1]
+        b = torch.where((g == 1) & group1_empty, torch.zeros_like(b), b)
+        return from_int64(b)
 
 
 def digit_counts(keys, offset: int, width: int) -> torch.Tensor:

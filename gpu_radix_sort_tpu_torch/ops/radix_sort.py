@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timers import span
 from . import binning, block_sort, digit_sort, merge_sort, single_block
 from .bits import (
     INT64_MIN, KEY64_DTYPES, KEY_DTYPE, as_tensor, decode_ordered,
@@ -94,13 +95,14 @@ def sort_full(keys, *, strategy: str | None = None) -> torch.Tensor:
         )
     if keys.dtype != KEY_DTYPE:
         raise TypeError(f"unsupported key dtype {keys.dtype}; use uint32/int32/float32")
-    keys = keys.contiguous()
-    route = _resolve(strategy, keys.numel())
-    if route == "torch":
-        return _sort_full_torch(keys)
-    if route == "single_block":
-        return single_block.sort_single_block(keys)
-    return merge_sort.sort_full_large(keys)
+    with span("grs.sort_full"):
+        keys = keys.contiguous()
+        route = _resolve(strategy, keys.numel())
+        if route == "torch":
+            return _sort_full_torch(keys)
+        if route == "single_block":
+            return single_block.sort_single_block(keys)
+        return merge_sort.sort_full_large(keys)
 
 
 def _sort_by_digits_rotated(
@@ -165,10 +167,11 @@ def sort_partial(
     ``(sorted_keys, boundaries)``, boundaries uint32[2^width]
     (invokers.cu:15 + sort.cu:367-394).  Boundaries do not depend on the
     order within a group, so ``stable`` does not change them."""
-    sorted_keys = sort_by_digits(
-        keys, offset, width, strategy=strategy, stable=stable
-    )
-    return sorted_keys, compute_boundaries(sorted_keys, offset, width)
+    with span("grs.sort_partial"):
+        sorted_keys = sort_by_digits(
+            keys, offset, width, strategy=strategy, stable=stable
+        )
+        return sorted_keys, compute_boundaries(sorted_keys, offset, width)
 
 
 def sort_partial_counts(

@@ -35,6 +35,7 @@ import torch
 from ..ops.bits import KEY_BITS, KEY_DTYPE, decode_ordered, encode_ordered, rotr32
 from ..ops.radix_sort import _VALID as _VALID_STRATEGY
 from ..ops.radix_sort import sort_full
+from ..utils.timers import span
 from . import exchange as ex
 from . import rdma_overlap as ov
 from .mesh import KEY_AXIS, KeyMesh, key_mesh, psum, shard, single_controller, unshard
@@ -73,14 +74,15 @@ def _exchange_raw(sorted_shards, *, offset, width, exchange, capacity, mesh=None
     """Round k's exchange of already digit-sorted shards without the
     reassembly: lists (tags, flat, overflowed), see
     ``exchange.exchange_round_alltoall_raw``."""
-    if exchange == "overflow":
-        c0, c_ov = capacity
-        return ex.exchange_round_alltoall_overflow_raw(
-            sorted_shards, offset, width, c0, c_ov, mesh
-        )
-    if exchange == "rdma":
-        return exchange_round_rdma_raw(sorted_shards, offset, width, mesh, peers)
-    return ex.exchange_round_alltoall_raw(sorted_shards, offset, width, capacity, mesh)
+    with span("grs.exchange"):
+        if exchange == "overflow":
+            c0, c_ov = capacity
+            return ex.exchange_round_alltoall_overflow_raw(
+                sorted_shards, offset, width, c0, c_ov, mesh
+            )
+        if exchange == "rdma":
+            return exchange_round_rdma_raw(sorted_shards, offset, width, mesh, peers)
+        return ex.exchange_round_alltoall_raw(sorted_shards, offset, width, capacity, mesh)
 
 
 def _unslack(tags: torch.Tensor, z: torch.Tensor, width: int) -> torch.Tensor:
@@ -99,29 +101,32 @@ def _fused_sort_shard(shards, *, width, exchange, capacity, strategy, nsteps, me
     the same value, so the first n_local survivors are exact."""
     n_local = shards[0].numel()
     overflow = [torch.zeros((), dtype=torch.int32, device=s.device) for s in shards]
-    sorted_shards = [
-        rotr32(sort_full(rotr32(s, width), strategy=strategy), 32 - width)
-        for s in shards
-    ]
     tags = flat = None
     for step in range(nsteps):
-        if step > 0:
-            rot = ((step + 1) * width) % 32
-            sorted_shards = [
-                rotr32(sort_full(_unslack(t, rotr32(f, rot), width),
-                                 strategy=strategy), 32 - rot)[:n_local]
-                for t, f in zip(tags, flat)
-            ]
-        tags, flat, ovf = _exchange_raw(
-            sorted_shards, offset=step * width, width=width,
-            exchange=exchange, capacity=capacity, mesh=mesh, peers=peers,
-        )
-        overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
+        with span("grs.round"):
+            if step == 0:
+                sorted_shards = [
+                    rotr32(sort_full(rotr32(s, width), strategy=strategy), 32 - width)
+                    for s in shards
+                ]
+            else:
+                rot = ((step + 1) * width) % 32
+                sorted_shards = [
+                    rotr32(sort_full(_unslack(t, rotr32(f, rot), width),
+                                     strategy=strategy), 32 - rot)[:n_local]
+                    for t, f in zip(tags, flat)
+                ]
+            tags, flat, ovf = _exchange_raw(
+                sorted_shards, offset=step * width, width=width,
+                exchange=exchange, capacity=capacity, mesh=mesh, peers=peers,
+            )
+            overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
     # the final round's rotation is the identity: a plain value sort reassembles
-    out = [
-        sort_full(_unslack(t, f, width), strategy=strategy)[:n_local]
-        for t, f in zip(tags, flat)
-    ]
+    with span("grs.round"):
+        out = [
+            sort_full(_unslack(t, f, width), strategy=strategy)[:n_local]
+            for t, f in zip(tags, flat)
+        ]
     return out, psum(overflow, mesh)
 
 
@@ -195,19 +200,21 @@ def build_distributed_sort(
             raise ValueError(
                 f"expected {len(mesh.devices)} shards of {n_local} keys on {mesh.devices}"
             )
-        if fuse_rounds:
-            return _fused_sort_shard(
-                shards, width=width, exchange=exchange, capacity=capacity,
-                strategy=strategy, nsteps=nsteps, mesh=mesh, peers=peers,
-            )
-        overflow = [torch.zeros((), dtype=torch.int32, device=s.device) for s in shards]
-        for step in range(nsteps):
-            shards, ovf = _round_fn(
-                shards, offset=step * width, width=width, exchange=exchange,
-                capacity=capacity, strategy=strategy, mesh=mesh, peers=peers,
-            )
-            overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
-        return shards, psum(overflow, mesh)
+        with span("grs.mesh_sort"):
+            if fuse_rounds:
+                return _fused_sort_shard(
+                    shards, width=width, exchange=exchange, capacity=capacity,
+                    strategy=strategy, nsteps=nsteps, mesh=mesh, peers=peers,
+                )
+            overflow = [torch.zeros((), dtype=torch.int32, device=s.device) for s in shards]
+            for step in range(nsteps):
+                with span("grs.round"):
+                    shards, ovf = _round_fn(
+                        shards, offset=step * width, width=width, exchange=exchange,
+                        capacity=capacity, strategy=strategy, mesh=mesh, peers=peers,
+                    )
+                    overflow = [o + v.to(torch.int32) for o, v in zip(overflow, ovf)]
+            return shards, psum(overflow, mesh)
 
     return fn
 

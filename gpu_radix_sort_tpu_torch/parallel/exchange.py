@@ -40,6 +40,7 @@ import torch
 
 from ..ops.boundaries import digit_counts_sorted
 from ..ops.radix_sort import sort_by_digits, sort_key_value_by_digits
+from ..utils.timers import span
 from .mesh import KeyMesh, all_gather, all_to_all, global_ranks
 
 PAD_KEY = -1  # 0xFFFFFFFF as int32
@@ -162,9 +163,10 @@ def exchange_round_alltoall(shards: list, offset: int, width: int, capacity: int
     all-to-all, stable reassembly.  Returns (new shards, overflowed per
     rank)."""
     sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
-    tags, flat, overflowed = exchange_round_alltoall_raw(
-        sorted_shards, offset, width, capacity, mesh
-    )
+    with span("grs.exchange"):
+        tags, flat, overflowed = exchange_round_alltoall_raw(
+            sorted_shards, offset, width, capacity, mesh
+        )
     n_local = shards[0].numel()
     return [_reassemble(t, f, n_local, width, strategy) for t, f in zip(tags, flat)], overflowed
 
@@ -204,9 +206,10 @@ def exchange_round_alltoall_overflow(shards: list, offset: int, width: int,
     """One round through the two-pass exchange; a pair exceeding C0 + C_ov
     is reported as overflow."""
     sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
-    tags, flat, overflowed = exchange_round_alltoall_overflow_raw(
-        sorted_shards, offset, width, capacity0, capacity_ov, mesh
-    )
+    with span("grs.exchange"):
+        tags, flat, overflowed = exchange_round_alltoall_overflow_raw(
+            sorted_shards, offset, width, capacity0, capacity_ov, mesh
+        )
     n_local = shards[0].numel()
     return [_reassemble(t, f, n_local, width, strategy) for t, f in zip(tags, flat)], overflowed
 
@@ -219,7 +222,9 @@ def exchange_round_gather(shards: list, offset: int, width: int, *,
     _, first = global_ranks(mesh, len(shards))
     by_device: dict[torch.device, torch.Tensor] = {}
     out = []
-    for i, gathered in enumerate(all_gather([s.view(torch.int32) for s in shards], mesh)):
+    with span("grs.exchange"):
+        every = all_gather([s.view(torch.int32) for s in shards], mesh)
+    for i, gathered in enumerate(every):
         my, dev = first + i, gathered.device
         if dev not in by_device:
             by_device[dev] = sort_by_digits(gathered.reshape(-1).view(torch.uint32),

@@ -56,6 +56,7 @@ from ..kernels import build
 from ..ops.block_sort import check_keys
 from ..ops.boundaries import digit_counts_sorted
 from ..ops.radix_sort import sort_by_digits
+from ..utils.timers import span
 from .exchange import _run_starts_global, _slice_counts, digits_i32
 from .mesh import KeyMesh, all_gather, global_ranks
 from .peer_memory import PeerBuffers, drain
@@ -291,5 +292,6 @@ def exchange_round_rdma(shards: list, offset: int, width: int, *,
     overflow.  With no slack the stable reassembly is a stable digit sort of
     each receive buffer."""
     sorted_shards = [sort_by_digits(s, offset, width, strategy=strategy) for s in shards]
-    _, flat, overflowed = exchange_round_rdma_raw(sorted_shards, offset, width, mesh, peers)
+    with span("grs.exchange"):
+        _, flat, overflowed = exchange_round_rdma_raw(sorted_shards, offset, width, mesh, peers)
     return [sort_by_digits(f, offset, width, strategy=strategy) for f in flat], overflowed

@@ -56,6 +56,7 @@ from ..ops.bits import sortable_digits, validate_digit_range
 from ..ops.block_sort import check_keys
 from ..ops.digit_sort import sort_by_digits_small_emulated
 from ..ops.radix_sort import sort_by_digits
+from ..utils.timers import span
 from .exchange import _run_starts_global, _slice_counts, digits_i32
 from .mesh import KeyMesh, all_gather, global_ranks
 from .peer_memory import PeerBuffers
@@ -259,7 +260,8 @@ def exchange_round_rdma_overlapped(shards: list, offset: int, width: int, *,
     """One distributed digit round through the overlapped exchange.
     Returns (new shards, overflowed per rank, all False); see
     :func:`exchange_round_rdma_overlapped_raw`."""
-    recv = exchange_round_rdma_overlapped_raw(shards, offset, width, tile=tile, serial=serial,
-                                              mesh=mesh, peers=peers)
+    with span("grs.exchange"):
+        recv = exchange_round_rdma_overlapped_raw(shards, offset, width, tile=tile,
+                                                  serial=serial, mesh=mesh, peers=peers)
     out = [sort_by_digits(r, offset, width, strategy=strategy) for r in recv]
     return out, [torch.zeros((), dtype=torch.bool, device=r.device) for r in recv]

@@ -53,8 +53,6 @@ class SortConfig:
     worker: str = "local"
     # Per-round persistence (checkpoint/resume); None disables.
     checkpoint_dir: str | None = None
-    # torch.profiler trace output dir; None disables.
-    trace_dir: str | None = None
     # Device of the sorts, the device backend and the worker processes.
     device: str = "cuda"
 
@@ -70,7 +68,6 @@ class SortConfig:
             mount=_env("MOUNT", cls.mount, str),
             worker=_env("WORKER", cls.worker, str),
             checkpoint_dir=_env("CHECKPOINT_DIR", cls.checkpoint_dir, str),
-            trace_dir=_env("TRACE_DIR", cls.trace_dir, str),
             device=_env("DEVICE", cls.device, str),
         )
         return dataclasses.replace(cfg, **overrides)

@@ -13,6 +13,12 @@ named phases, as the storage round loop reports them (``split``,
 and in the fused device loops ``round_sort``, ``counts_d2h``, ``commit``).
 A phase that ends in device work synchronizes before it closes, so its host
 time covers the device's.
+
+:func:`span` marks a step of the program on the profiler's timeline: where
+a ``torch.profiler`` runs, a ``record_function`` range (a user annotation in
+the same trace as the device's kernels and copies, so on their clock, its
+parent the span around it on the thread); where none runs, one shared null
+context, so a span costs one attribute read and keeps nothing.
 """
 
 from __future__ import annotations
@@ -25,6 +31,18 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named ``name`` (``grs.<layer>[.<step>]``) around the host code
+    that enqueues a step's work: ``record_function(name)`` under a running
+    profiler, else the shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _autograd_profiler.record_function(name)
 
 
 def time_cuda(fn: Callable[[], object], *, warmup: int = 2, iters: int = 10) -> float:

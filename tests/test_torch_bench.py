@@ -121,13 +121,14 @@ def test_bench_functions_are_the_jax_harness_functions():
 
 def _suite_calls(h, suite: str, monkeypatch) -> list:
     """(function, n, config, kwargs) of each row of ``run_benchmarks(suite)``,
-    in order, with the port's ``device`` arguments left out."""
+    in order, with the port's ``device`` arguments left out, and JAX's
+    ``trace_dir`` field, which the port's config does not have."""
     calls = []
 
     def recorder(name):
         def bench(n, *args, **kwargs):
-            cfg = {k: v for k, v in dataclasses.asdict(args[0]).items() if k != "device"} \
-                if args else None
+            cfg = {k: v for k, v in dataclasses.asdict(args[0]).items()
+                   if k not in ("device", "trace_dir")} if args else None
             kwargs = {k: v for k, v in kwargs.items() if k != "device"}
             calls.append((name, n, cfg, kwargs))
             return h.BenchRecord(name, n, 1, 1.0, 1.0, 0.0, float(n))
