@@ -16,11 +16,13 @@
    16-byte boundary), digit_sort and binning against their plain PyTorch
    versions, byte for byte, at small shapes and at the shapes of the main
    paths;
-4. drives the first main path -- sort_full of 64M PCG32 keys -- with the
-   launch counts set to 0 just before and read just after, exact against
-   np.sort; then a ragged n, the one-block route (single_block_sort, its
-   launch count), int32/float32 keys and sort_partial(stable=False) against
-   the reference's boundary contract;
+4. drives the first main path -- sort_full of 64M PCG32 keys (the onesweep
+   route above ONESWEEP_MIN_N) -- with the launch counts set to 0 just
+   before and read just after, exact against np.sort; then a ragged n, the
+   one-block route (single_block_sort, its launch count), int32/float32
+   keys and sort_partial(stable=False) against the reference's boundary
+   contract; then the onesweep sort on its own (onesweep_path, as
+   ``--onesweep`` below);
 5. drives the second main path -- the stable sort_partial of 256Mi PCG32
    keys at widths 4, 8 and 16 -- the same way, exact against the numpy
    stable oracle, its boundaries and its counts; then the kv digit sort
@@ -184,6 +186,19 @@ card, making its inputs and oracles beside the build.
 
 builds the kernels and runs only the harness step (14. above) on one card.
 
+    python3 chip_smoke.py --onesweep
+
+builds the kernels and runs only the onesweep sort (onesweep_path): its
+geometry against the wrapper's; exactness against torch.sort at 2^15, 2^20,
+256Mi, 320Mi + 256 and 2^29 keys, at every input word offset past a 16-byte
+boundary, for several kinds of keys (the input left unwritten), and against
+its plain version; its time at 256Mi and 320Mi + 256 beside its bound, its
+plain version, torch.sort and the merge route, a profile by kernel and its
+scratch; the crossover sweep against the merge route at 2^15 .. 2^22; and
+the launches of sort_full at 2^29 and at either side of ONESWEEP_MIN_N, of
+sort_partial(stable=False) and of the mesh LSD sort on four ranks of one
+card.
+
     python3 chip_smoke.py --out-of-core
 
 builds the kernels and runs the out-of-core runner (15. above) at its two
@@ -265,6 +280,8 @@ PTXAS_KERNELS = {
     "group_sort_send_kernel": ("group_sort_send_kernel", "exchange.cu"),
     "single_block_sort_kernel<14>": ("single_block_sort_kernelILi14E", "block_sort.cu"),
     "segment_copy_kernel": ("segment_copy_kernel", "exchange.cu"),
+    "onesweep_histogram_kernel": ("25onesweep_histogram_kernel", "onesweep.cu"),
+    "onesweep_pass_kernel": ("20onesweep_pass_kernel", "onesweep.cu"),
 }
 
 
@@ -384,6 +401,27 @@ def device_profile(fn, reps: int = 3):
     return by_name, 1.0 - busy / window if window else 0.0
 
 
+def kernel_launches_ms(fn, reps: int = 5) -> dict[str, list[float]] | None:
+    """Each device kernel's time (ms) at every launch the profiler saw over
+    ``reps`` calls of ``fn``, by kernel name; None where it saw none.  A
+    mean a launch holds where the profiler misses a call's kernels, which
+    a sum over ``reps`` does not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times.setdefault(e.name, []).append((e.time_range.end - e.time_range.start) / 1e3)
+    return times or None
+
+
 def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) -> dict:
     """The storage plane at the reference's distributed configuration: 512Mi
     PCG32 keys (2 GiB), digit width 8, 2 workers, 4 rounds (BASELINE.md:10,
@@ -402,6 +440,7 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.parallel import serverless as sv
@@ -409,8 +448,8 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
     from gpu_radix_sort_tpu_torch.utils import keygen, timers
     from gpu_radix_sort_tpu_torch.utils.timers import SortStats
 
-    counters = {"block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
-                "single_block_sort": sb}
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms, "digit_sort": ds,
+                "binning": bn, "single_block_sort": sb}
     none = dict.fromkeys(counters, 0)
     res = {"launches": {}, "peak_mib": {}, "ms": {}, "phases_s": {}, "torch_ms": {},
            "card": card}
@@ -471,9 +510,7 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
         f"{d2h:.3f} ms (pageable host memory; CUDA-event median of 3)")
 
     # -- sort_full of 2^29 keys, the fused loops' global sort ----------------
-    levels = (n // bs.TILE - 1).bit_length()
-    out = run(f"sort_full {n}", lambda: rs.sort_full(keys),
-              {"block_sort": 1, "merge_level": levels})
+    out = run(f"sort_full {n}", lambda: rs.sort_full(keys), full_sort_launches(n))
     exact(out.cpu().numpy(), want, f"sort_full of {n} keys")
     del out
     res["sort_full_ms"] = timers.time_cuda(lambda: rs.sort_full(keys), iters=5)
@@ -488,9 +525,8 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
     yardstick[("u32", n)] = res["torch_sort_ms"]
 
     # -- device backend, stock worker, no checkpoint: the fused loop ---------
-    row_levels = (n // nworker // bs.TILE - 1).bit_length()
-    fused_expect = {"block_sort": nstep - 1 + nworker,
-                    "merge_level": (nstep - 1) * levels + nworker * row_levels}
+    fused_expect = launches_sum(full_sort_launches(n, nstep - 1),
+                                full_sort_launches(n // nworker, nworker))
     f = pdata.DeviceArrayFactory(dev)
     name = "device fused"
     stats = SortStats()
@@ -540,8 +576,8 @@ def storage_path(dev, card: str, head: np.ndarray | None = None, stream=None) ->
         got = run(name, lambda: ss.sort_distrib_from_raw(
             keys, "sk", f, width=width, nworker=nworker, stats=stats,
             checkpoint_dir=os.path.join(ckpt_root, "fu")),
-            {"block_sort": nstep - 1 + nstep * nworker,
-             "merge_level": (nstep - 1) * levels + nstep * nworker * row_levels})
+            launches_sum(full_sort_launches(n, nstep - 1),
+                         full_sort_launches(n // nworker, nstep * nworker)))
         exact(got, want, f"storage {name}")
         if [m["completed_step"] for m in manifests] != list(range(nstep)):
             fail(f"{name}: manifests of steps {[m['completed_step'] for m in manifests]}")
@@ -934,6 +970,7 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits
@@ -962,8 +999,9 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
         f"G 1/3/64, uniform/duplicate/skewed/equal, 4 ranks; serial round == "
         f"overlapped round; n_local={n_rank}) in {time.perf_counter() - t0:.1f} s")
 
-    counters = {"segment_copy": rx, "group_sort_send": ov, "block_sort": bs,
-                "merge_level": ms, "digit_sort": ds, "binning": bn, "single_block_sort": sb}
+    counters = {"segment_copy": rx, "group_sort_send": ov, "onesweep": osw,
+                "block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
+                "single_block_sort": sb}
 
     def zero() -> None:
         for mod in counters.values():
@@ -979,7 +1017,6 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     # -- main path three: sort_distributed(rdma) on key_mesh() ---------------
     mesh1 = key_mesh()
     P1 = mesh1.size
-    levels = (N_MESH // P1 // bs.TILE - 1).bit_length()
     nsteps = 32 // 8
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -991,9 +1028,8 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
     first_ms = (time.perf_counter() - t0) * 1e3
     main_launches = read()
     peak = (torch.cuda.max_memory_allocated() - held) / 2**20
-    expect = {"segment_copy": nsteps * P1, "group_sort_send": 0,
-              "block_sort": (nsteps + 1) * P1, "merge_level": (nsteps + 1) * P1 * levels,
-              "digit_sort": 0, "binning": 0, "single_block_sort": 0}
+    expect = {**dict.fromkeys(counters, 0), "segment_copy": nsteps * P1,
+              **full_sort_launches(N_MESH // P1, (nsteps + 1) * P1)}
     log(f"main path: sort_distributed(width=8, exchange='rdma') of {N_MESH} PCG32 keys "
         f"on key_mesh() ({P1} rank), launches {main_launches}; first call "
         f"{first_ms:.1f} ms by host clock; peak device memory {peak:.0f} MiB above "
@@ -1006,15 +1042,11 @@ def mesh_path(dev, rng, card: str, part: torch.Tensor, part_np: np.ndarray,
 
     # -- four ranks on one card ------------------------------------------------
     mesh4 = key_mesh([dev] * MESH_RANKS)
-    levels4 = (n_rank // bs.TILE - 1).bit_length()
     four = {
-        "rdma": {"segment_copy": nsteps * MESH_RANKS, "group_sort_send": 0,
-                 "block_sort": (nsteps + 1) * MESH_RANKS,
-                 "merge_level": (nsteps + 1) * MESH_RANKS * levels4,
-                 "digit_sort": 0, "binning": 0, "single_block_sort": 0},
-        "rdma_overlap": {"segment_copy": 0, "group_sort_send": nsteps * MESH_RANKS,
-                         "block_sort": 0, "merge_level": 0, "digit_sort": 0,
-                         "binning": nsteps * MESH_RANKS * 2, "single_block_sort": 0},
+        "rdma": {**dict.fromkeys(counters, 0), "segment_copy": nsteps * MESH_RANKS,
+                 **full_sort_launches(n_rank, (nsteps + 1) * MESH_RANKS)},
+        "rdma_overlap": {**dict.fromkeys(counters, 0), "group_sort_send": nsteps * MESH_RANKS,
+                         "binning": nsteps * MESH_RANKS * 2},
     }
     four_launches = {}
     for exchange, expect in four.items():
@@ -1170,13 +1202,14 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops import table
     from gpu_radix_sort_tpu_torch.ops.bits import digits64, decode_ordered64, encode_ordered64
     from gpu_radix_sort_tpu_torch.utils import checks, keygen, timers
 
-    counters = {"block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
-                "single_block_sort": sb}
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms, "digit_sort": ds,
+                "binning": bn, "single_block_sort": sb}
     none = dict.fromkeys(counters, 0)
     res = {"launches": {}, "peak_mib": {}, "ms": {}, "torch_ms": {}, "card": card}
     keep = {} if keep is None else keep
@@ -1433,10 +1466,9 @@ def kv_table_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     keep["zipf"] = (zipf_np, zs)
     starts = run_starts(zs)
     uniq_np = zs[starts]
-    levels = (n // bs.TILE - 1).bit_length()
     name = "group_aggregate count zipf"
     uniq, agg, ng = run(name, lambda: table.group_aggregate(zipf, None, "count"),
-                        {"block_sort": 1, "merge_level": levels})
+                        full_sort_launches(n))
     g = int(ng)
     if g != starts.size:
         fail(f"{name}: {g} groups, expected {starts.size}")
@@ -1509,6 +1541,7 @@ def sample_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops.bits import encode_ordered64
@@ -1518,8 +1551,8 @@ def sample_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     from gpu_radix_sort_tpu_torch.utils import keygen, timers
 
     t_path = time.perf_counter()
-    counters = {"block_sort": bs, "merge_level": ms, "single_block_sort": sb,
-                "digit_sort": ds, "binning": bn}
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms,
+                "single_block_sort": sb, "digit_sort": ds, "binning": bn}
     none = dict.fromkeys(counters, 0)
     res = {"launches": {}, "peak_mib": {}, "ms": {}, "card": card}
     passes32 = 32 // bn.PASS_WIDTH
@@ -1557,23 +1590,15 @@ def sample_path(dev, card: str, part: torch.Tensor, part_np: np.ndarray,
     def levels(m: int, run_: int) -> int:
         return ((m - 1) // run_).bit_length() if m > run_ else 0
 
-    def full_sort(m: int) -> dict:
-        if m <= sb.MAX_N:
-            return {"single_block_sort": 1}
-        return {"block_sort": 1, "merge_level": levels(m, bs.TILE)}
-
     def keys_only(ranks: int, n_keys: int, reassembly: str) -> dict:
         """Launches of the 32-bit sample sort of n_keys keys on ranks ranks."""
         n_local = max(-(-n_keys // ranks), ranks)
         cap = ss.default_pair_capacity(n_local, ranks, 1.5)
         m = ranks * cap + n_local
-        parts = [full_sort(n_local)]
-        parts.append(full_sort(m) if reassembly == "sort" else {"merge_level": levels(m, cap)})
-        total: dict = {}
-        for d in parts:
-            for k, v in d.items():
-                total[k] = total.get(k, 0) + v * ranks
-        return total
+        return launches_sum(
+            full_sort_launches(n_local, ranks),
+            full_sort_launches(m, ranks) if reassembly == "sort"
+            else {"merge_level": ranks * levels(m, cap)})
 
     def timed(name: str, fn) -> float:
         res["ms"][name] = timers.time_cuda(fn)
@@ -1823,6 +1848,7 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops import table
     from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
@@ -1830,8 +1856,8 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
     from gpu_radix_sort_tpu_torch.utils import keygen, timers
 
     t_path = time.perf_counter()
-    counters = {"block_sort": bs, "merge_level": ms, "single_block_sort": sb,
-                "digit_sort": ds, "binning": bn}
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms,
+                "single_block_sort": sb, "digit_sort": ds, "binning": bn}
     none = dict.fromkeys(counters, 0)
     res = {"launches": {}, "peak_mib": {}, "ms": {}, "card": card}
     kv_sort = 2 * (32 // bn.PASS_WIDTH)  # a key-value sort: keys and one column a pass
@@ -1854,11 +1880,6 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
         res["peak_mib"][name] = (torch.cuda.max_memory_allocated() - held) / 2**20
         return out
 
-    def full_sort(m: int, ranks: int) -> dict:
-        if m <= sb.MAX_N:
-            return {"single_block_sort": ranks}
-        return {"block_sort": ranks, "merge_level": ranks * ((m - 1) // bs.TILE).bit_length()}
-
     keys_np, uniq, counts = inputs.result() if inputs is not None else aggregate_inputs(N_AGG)
     n = keys_np.size
     log(f"aggregate path: {n} Zipf(1.2) keys, {uniq.size} groups, the largest "
@@ -1875,7 +1896,7 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
         args = (shard(keys, mesh), shard(ones, mesh), shard(valid, mesh))
         name = f"count {ranks}r"
         gk, ga, ng, overflow = run(name, lambda: fn(*args),
-                                   {**full_sort(n_local, ranks), "binning": kv_sort * ranks})
+                                   {**full_sort_launches(n_local, ranks), "binning": kv_sort * ranks})
         if int(overflow):
             fail(f"aggregate path {name}: overflow {int(overflow)}")
         sizes = [int(g) for g in ng]
@@ -1925,7 +1946,7 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
     if torch.unique(keys.view(torch.int32)).numel() != uniq.size:
         fail("aggregate path: torch.unique counts other groups than np.unique")
     gu, gc, gn = run("group_aggregate count", lambda: table.group_aggregate(keys, None, "count"),
-                     full_sort(n, 1))
+                     full_sort_launches(n))
     g = int(gn)
     if g != uniq.size or not (np.array_equal(gu[:g].cpu().numpy(), uniq) and np.array_equal(
             gc[:g].cpu().numpy().astype(np.int64), counts)):
@@ -1985,14 +2006,14 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
     name = f"count even keys {P}r"
     gk, ga = run(name, lambda: pp.hash_aggregate_distributed(
         kv, op="count", mesh=mesh4, predicate=lambda k: (k & 1) == 0),
-        {**full_sort(nv // P, P), "binning": kv_sort * P})
+        {**full_sort_launches(nv // P, P), "binning": kv_sort * P})
     even, o = u % 2 == 0, np.argsort(gk)
     check_groups(f"aggregate path {name}", [gk[o]], [ga[o]], u[even], c[even])
     name = f"count key_order {P}r"
     device_order = u.size >= pp.KEY_ORDER_DEVICE_MIN
     gk, ga = run(name, lambda: pp.hash_aggregate_distributed(kv, op="count", mesh=mesh4,
                                                              key_order=True),
-                 {**full_sort(nv // P, P), "binning": kv_sort * (P + device_order)})
+                 {**full_sort_launches(nv // P, P), "binning": kv_sort * (P + device_order)})
     if not (np.array_equal(gk, u) and np.array_equal(ga.astype(np.int64), c)):
         fail(f"aggregate path {name} differs from np.unique")
     del gk, ga, again, f, uv, kv, order, starts
@@ -2005,7 +2026,7 @@ def aggregate_path(dev, card: str, inputs=None) -> dict:
     # -- the selftest's aggregate: shards of <= 2^14 keys (B3) ------------------
     zk = keygen.generate_zipf_keys(N_AGG_TINY, alpha=1.3, seed=2)
     gk, ga = run("count tiny 1r", lambda: pp.hash_aggregate_distributed(
-        zk, op="count", mesh=key_mesh([dev])), {**full_sort(N_AGG_TINY, 1), "binning": kv_sort})
+        zk, op="count", mesh=key_mesh([dev])), {**full_sort_launches(N_AGG_TINY), "binning": kv_sort})
     zu, zc = np.unique(zk, return_counts=True)
     check_groups("aggregate path count tiny 1r", [gk], [ga], zu, zc)
 
@@ -2092,6 +2113,7 @@ def bench_path(dev, card: str) -> dict:
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh
@@ -2161,14 +2183,9 @@ def bench_path(dev, card: str) -> dict:
         f"(native, threads), the numpy fill {plain_s:.3f} s; the same words")
 
     # -- one call of each row that runs on the card, counted ----------------
-    counters = {"block_sort": bs, "merge_level": ms, "single_block_sort": sb,
-                "digit_sort": ds, "binning": bn}
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms,
+                "single_block_sort": sb, "digit_sort": ds, "binning": bn}
     none = dict.fromkeys(counters, 0)
-
-    def full_sort(m: int, ranks: int) -> dict:
-        if m <= sb.MAX_N:
-            return {"single_block_sort": ranks}
-        return {"block_sort": ranks, "merge_level": ranks * ((m - 1) // bs.TILE).bit_length()}
 
     def one_call(fn, args, **_):
         """The harness's timer, replaced: one call of the row's function."""
@@ -2185,13 +2202,13 @@ def bench_path(dev, card: str) -> dict:
     # row -> (one call of it, its launches: exact, or None for "some kernel")
     rows = {
         "full_sort_u32": (lambda: harness.bench_full_sort(N_BENCH, device=dev),
-                          full_sort(N_BENCH, 1)),
+                          full_sort_launches(N_BENCH)),
         **{f"partial_sort_u32_w{w}": (
             lambda w=w: harness.bench_partial_sort(N_BENCH, width=w, device=dev),
             {"binning": -(-w // bn.PASS_WIDTH)}) for w in (4, 8, 16)},
         "partial_sort_u32_w8_refcontract": (
             lambda: harness.bench_partial_sort(N_BENCH, width=8, stable=False, device=dev),
-            full_sort(N_BENCH, 1)),
+            full_sort_launches(N_BENCH)),
         "kv_sort_u32_p8B": (
             lambda: harness.bench_key_value_sort(N_BENCH // 2, payload_bytes=8, device=dev),
             {"binning": kv_sort}),
@@ -2212,7 +2229,7 @@ def bench_path(dev, card: str) -> dict:
             None),
         "hash_aggregate_count_zipf": (
             lambda: harness.bench_hash_aggregate(n_local, device=dev),
-            {**full_sort(n_local, P), "binning": kv_sort * P}),
+            {**full_sort_launches(n_local, P), "binning": kv_sort * P}),
         "full_sort_u64": (lambda: harness.bench_full_sort_u64(16 << 20, device=dev), {}),
         "storage_mem_local_w8": (storage(harness.bench_storage_distrib, 1 << 20, "mem"),
                                  None),
@@ -2344,11 +2361,12 @@ def ooc_run(card: str, mount: str, rows: int, payload_bytes: int, nworker: int) 
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.parallel import storage_sort as ss
 
-    counters = {"block_sort": bs, "merge_level": ms, "digit_sort": ds, "binning": bn,
-                "single_block_sort": sb}
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms, "digit_sort": ds,
+                "binning": bn, "single_block_sort": sb}
     expect = dict.fromkeys(counters, 0)
     if not payload_bytes:
         expect["binning"] = (32 // OOC_WIDTH) * nworker * -(-OOC_WIDTH // bn.PASS_WIDTH)
@@ -2453,15 +2471,17 @@ MULTIHOST_RANKS = 4  # ranks a mesh of one card: four processes of one, two of t
 MULTIHOST_DIR = "_multihost_smoke"  # the children's oracles (listed in .gitignore)
 MULTIHOST_TIMEOUT_S = 420  # a phase's children, all told
 GLOO_STAGED_REPS = 1  # timed calls of a gloo row that stages its keys: seconds a call
-MULTIHOST_KERNELS = ("block_sort", "merge_level", "binning", "segment_copy", "group_sort_send")
-# the paths of the multi-process phases and the kernels each must launch
+MULTIHOST_KERNELS = ("onesweep", "block_sort", "merge_level", "binning", "segment_copy",
+                     "group_sort_send")
+# the paths of the multi-process phases and the kernels each must launch (the
+# shards' full sorts lie above ONESWEEP_MIN_N)
 MULTIHOST_REQUIRED = {
-    "lsd alltoall": ("block_sort", "merge_level"),
-    "lsd rdma": ("segment_copy", "block_sort", "merge_level"),
+    "lsd alltoall": ("onesweep",),
+    "lsd rdma": ("segment_copy", "onesweep"),
     "lsd rdma_overlap": ("group_sort_send", "binning"),
-    "sample sort": ("block_sort", "merge_level"),
-    "sample merge": ("block_sort", "merge_level"),
-    "aggregate count": ("block_sort", "merge_level", "binning"),
+    "sample sort": ("onesweep",),
+    "sample merge": ("onesweep", "merge_level"),
+    "aggregate count": ("onesweep", "binning"),
 }
 PEER_PATHS = ("lsd rdma", "lsd rdma_overlap")  # B6 and B7 into other processes' buffers
 # every collective of torch.distributed, counted in the children (the podscale guard)
@@ -2657,6 +2677,7 @@ def multihost_child(spec: dict) -> int:
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.parallel import distributed as pd
     from gpu_radix_sort_tpu_torch.parallel import mesh as pm
@@ -2668,7 +2689,7 @@ def multihost_child(spec: dict) -> int:
     from gpu_radix_sort_tpu_torch.parallel.peer_memory import PeerBuffers
     from gpu_radix_sort_tpu_torch.utils import keygen, timers
 
-    counters = dict(zip(MULTIHOST_KERNELS, (bs, ms, bn, rx, ov)))
+    counters = dict(zip(MULTIHOST_KERNELS, (osw, bs, ms, bn, rx, ov)))
     faulthandler.dump_traceback_later(MULTIHOST_TIMEOUT_S - 30)  # a hang shows where it is
     initialize_distributed(backend=spec["backend"])
     dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
@@ -2978,6 +2999,271 @@ def multihost_cards_path(devs: list, card: str, files: dict, single: dict) -> di
     return res
 
 
+# The onesweep sort's exactness sizes: two small, the benchmark's 256Mi, the
+# mesh rounds' received flat of 320Mi + 256 keys, and the storage plane's
+# 2^29; its crossover sweep against the merge route.
+N_ONESWEEP = (1 << 15, 1 << 20, 1 << 28, 5 * (1 << 26) + 256, 1 << 29)
+N_ONESWEEP_TIMED = (1 << 28, 5 * (1 << 26) + 256)
+N_CROSSOVER = tuple(1 << k for k in range(15, 23))
+
+
+def full_sort_launches(m: int, sorts: int = 1) -> dict:
+    """Kernel launches of ``sorts`` calls of sort_full on m keys each, by
+    the route ``_resolve`` gives m: the onesweep sort, or the tile pass and
+    its merge levels, or one block."""
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+
+    route = rs._resolve(None, m)
+    if route == "onesweep":
+        return {"onesweep": sorts * osw.LAUNCHES}
+    if route == "merge":
+        return {"block_sort": sorts, "merge_level": sorts * ((m - 1) // bs.TILE).bit_length()}
+    return {"single_block_sort": sorts}
+
+
+def launches_sum(*parts: dict) -> dict:
+    """The launch counts of several calls, kernel by kernel."""
+    total: dict = {}
+    for part in parts:
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def onesweep_keys(n: int, kind: str, gen, dev, offset: int = 0) -> torch.Tensor:
+    """n keys of a kind on the card, starting ``offset`` words past a
+    16-byte boundary: uniform; all equal; 0 and 0xFFFFFFFF; uniform with 20%
+    slack keys of 0xFFFFFFFF (the mesh rounds' received flat); four values
+    of every byte."""
+    buf = torch.empty(n + 4, dtype=torch.int32, device=dev)
+    x = buf[offset:offset + n]
+    if kind == "equal":
+        x.fill_(0x1E3779B9)
+        return x.view(torch.uint32)
+    x.random_(-(1 << 31), 1 << 31, generator=gen)
+    if kind == "zero-max":
+        x.copy_(torch.where(x < 0, -1, 0))
+    elif kind == "slack20":
+        x.masked_fill_(torch.rand(n, device=dev, generator=gen) < 0.2, -1)
+    elif kind == "few":
+        x.copy_((x & 3) * 0x41414141)
+    return x.view(torch.uint32)
+
+
+def ms_text(v: float | None) -> str:
+    """A time for the log, or "not measured"."""
+    return "not measured" if v is None else f"{v:.3f} ms"
+
+
+def as_u64(x: torch.Tensor) -> torch.Tensor:
+    """uint32 keys as int64 values, for differences."""
+    return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def sorted_by_library(x: torch.Tensor) -> torch.Tensor:
+    """torch.sort of the order-isomorphic int32 view (the yardstick)."""
+    return (torch.sort(x.view(torch.int32) ^ (-(1 << 31))).values ^ (-(1 << 31))).view(
+        torch.uint32)
+
+
+def onesweep_path(dev, card: str, lib) -> dict:
+    """The onesweep sort: its geometry against the wrapper's, exactness
+    against torch.sort and its plain version at N_ONESWEEP (every input
+    word offset, several kinds of keys), its times beside its bound, its
+    plain version, torch.sort and the merge route, a profile by kernel, the
+    crossover sweep against the merge route, and the launches of the
+    sort_full paths it serves.  Returns the results for the JSON line."""
+    import ctypes
+
+    import gpu_radix_sort_tpu_torch as port
+    from gpu_radix_sort_tpu_torch.kernels import build
+    from gpu_radix_sort_tpu_torch.ops import block_sort as bs
+    from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
+    from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
+    from gpu_radix_sort_tpu_torch.ops import single_block as sb
+    from gpu_radix_sort_tpu_torch.parallel.mesh import key_mesh
+    from gpu_radix_sort_tpu_torch.utils import timers
+
+    tile, header = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(lib.grs_onesweep_geometry(ctypes.byref(tile), ctypes.byref(header)),
+                "onesweep geometry")
+    if (tile.value, header.value) != (osw.TILE, osw.HEADER_WORDS):
+        fail(f"onesweep geometry {tile.value}, {header.value} != the wrapper's "
+             f"{osw.TILE}, {osw.HEADER_WORDS}")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    res: dict = {"tile": osw.TILE}
+
+    # -- exactness ---------------------------------------------------------
+    t0 = time.perf_counter()
+    cases = err = 0
+    for n in N_ONESWEEP:
+        kinds = (("random", "equal", "zero-max", "slack20", "few") if n <= 1 << 20
+                 else ("random", "slack20"))
+        for kind in kinds:
+            for offset in range(4):
+                x = onesweep_keys(n, kind, gen, dev, offset)
+                before = x.clone()
+                got = osw.sort_full_onesweep(x)
+                want = sorted_by_library(x)
+                err = max(err, int((as_u64(got) - as_u64(want)).abs().max()))
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+                    fail(f"onesweep n={n} {kind} offset={offset}: {bad} keys differ "
+                         f"from torch.sort")
+                if not torch.equal(x.view(torch.int32), before.view(torch.int32)):
+                    fail(f"onesweep n={n} {kind} offset={offset} wrote its input")
+                cases += 1
+                del x, before, got, want
+        if n <= 1 << 20:
+            x = onesweep_keys(n, "random", gen, dev)
+            if not torch.equal(osw.sort_full_onesweep(x).view(torch.int32),
+                               osw.sort_full_onesweep_plain(x).view(torch.int32)):
+                fail(f"onesweep n={n} differs from its plain version")
+            cases += 1
+        torch.cuda.empty_cache()
+        log(f"onesweep: n={n} exact ({time.perf_counter() - t0:.1f} s so far)")
+    log(f"onesweep: {cases} cases equal to torch.sort byte for byte (n in {N_ONESWEEP}; "
+        f"input at word offsets 0-3 past a 16-byte boundary; random/equal/zero-max/"
+        f"slack20/few at n <= 2^20, random/slack20 above; the input unwritten), and to "
+        f"the plain version at 2^15 and 2^20, in {time.perf_counter() - t0:.1f} s")
+    res["exact_cases"], res["max_abs_err"] = cases, err
+
+    # -- times ---------------------------------------------------------------
+    for n in N_ONESWEEP_TIMED:
+        x = onesweep_keys(n, "random", gen, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        osw.sort_full_onesweep(x)
+        torch.cuda.synchronize()
+        scratch_mib = (torch.cuda.max_memory_allocated() - held) / 2**20 - 2 * n * 4 / 2**20
+        t_kernel = timers.time_cuda(lambda: osw.sort_full_onesweep(x), iters=20)
+        t_merge = timers.time_cuda(lambda: ms.sort_full_large(x), iters=5)
+        t_lib = timers.time_cuda(lambda: torch.sort(x.view(torch.int32)), iters=5)
+        t_plain = timers.time_cuda(lambda: osw.sort_full_onesweep_plain(x), warmup=1, iters=3)
+        b, b_alg = bound(8 * n, 0), bound(36 * n, 0)
+        prof = kernel_launches_ms(lambda: osw.sort_full_onesweep(x))
+        kinds = {"histogram": "onesweep_histogram_kernel", "pass": "onesweep_pass_kernel"}
+        per_launch, seen = {}, {}
+        for key, kname in kinds.items():
+            ts = [t for name, v in (prof or {}).items() if kname in name for t in v]
+            per_launch[key] = float(np.mean(ts)) if ts else None
+            seen[key] = len(ts)
+        kernel_sum = (per_launch["histogram"] + osw.PASSES * per_launch["pass"]
+                      if all(per_launch.values()) else None)
+        res[f"n={n}"] = {
+            "ms": t_kernel, "bound_ms": b[0], "bound_by": b[1],
+            "algorithm_bound_ms": b_alg[0], "plain_ms": t_plain,
+            "library_ms": t_lib, "merge_route_ms": t_merge,
+            "histogram_ms": per_launch["histogram"], "pass_ms": per_launch["pass"],
+            "launches_profiled": seen,
+            "kernel_sum_ms": kernel_sum,
+            "scratch_mib": scratch_mib, "scratch_words_mib": osw.scratch_words(n) * 4 / 2**20}
+        log(f"time [{card}]: onesweep of {n} keys {t_kernel:.3f} ms (bound {b[0]:.3f} ms "
+            f"for a key read and written once, {100 * b[0] / t_kernel:.1f}%; the algorithm's "
+            f"36 bytes a key {b_alg[0]:.3f} ms, {100 * b_alg[0] / t_kernel:.1f}%); by kernel "
+            f"(profiler, mean a launch over {seen} launches of 5 sorts): histogram "
+            f"{ms_text(per_launch['histogram'])}, a pass {ms_text(per_launch['pass'])} (bound "
+            f"{b[0]:.3f}); histogram + {osw.PASSES} passes {ms_text(kernel_sum)} "
+            f"against the event time {t_kernel:.3f} ms; merge route {t_merge:.3f} ms; "
+            f"torch.sort {t_lib:.3f} ms; plain {t_plain:.3f} ms; scratch beyond the two "
+            f"buffers {scratch_mib:.3f} MiB")
+        del x
+        torch.cuda.empty_cache()
+
+    # -- the crossover sweep ---------------------------------------------------
+    sweep = {}
+    for n in N_CROSSOVER:
+        x = onesweep_keys(n, "random", gen, dev)
+        t_os = timers.time_cuda(lambda: osw.sort_full_onesweep(x), warmup=3, iters=30)
+        t_ms = timers.time_cuda(lambda: ms.sort_full_large(x), warmup=3, iters=30)
+        t_lib = timers.time_cuda(lambda: sorted_by_library(x), warmup=3, iters=30)
+        sweep[n] = {"onesweep_ms": t_os, "merge_ms": t_ms, "torch_sort_ms": t_lib}
+        log(f"crossover [{card}]: n=2^{n.bit_length() - 1}: onesweep {t_os:.4f} ms, "
+            f"merge route {t_ms:.4f} ms, torch.sort {t_lib:.4f} ms (CUDA events, a call "
+            f"with its host work, median of 30)")
+    res["crossover"] = sweep
+    wins = [n for n in N_CROSSOVER if sweep[n]["onesweep_ms"] < sweep[n]["merge_ms"]]
+    first_win = next((n for n in N_CROSSOVER if all(m in wins for m in N_CROSSOVER if m >= n)),
+                     None)
+    res["crossover_first_win"] = first_win
+    log(f"crossover: onesweep faster from n={first_win} on (ONESWEEP_MIN_N is "
+        f"{rs.ONESWEEP_MIN_N})")
+
+    # -- the sort_full paths it serves, with their launches -------------------
+    counters = {"onesweep": osw, "block_sort": bs, "merge_level": ms, "single_block_sort": sb}
+
+    def launched(fn) -> dict:
+        for mod in counters.values():
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: mod.launches for k, mod in counters.items() if mod.launches}
+
+    x = onesweep_keys(1 << 29, "random", gen, dev)
+    out, got = launched(lambda: rs.sort_full(x))
+    if got != full_sort_launches(1 << 29):
+        fail(f"sort_full of 2^29 keys launched {got}, expected {full_sort_launches(1 << 29)}")
+    if not torch.equal(out.view(torch.int32), sorted_by_library(x).view(torch.int32)):
+        fail("sort_full of 2^29 keys differs from torch.sort")
+    paths = {"sort_full 2^29": got}
+    del x, out
+    x = onesweep_keys(N_PART, "random", gen, dev)
+    out, got = launched(lambda: rs.sort_partial(x, 0, 8, stable=False)[0])
+    if got != full_sort_launches(N_PART):
+        fail(f"sort_partial(stable=False) launched {got}")
+    paths["sort_partial(0, 8, stable=False) 256Mi"] = got
+    for m in (rs.ONESWEEP_MIN_N - 1, rs.ONESWEEP_MIN_N):
+        out, got = launched(lambda: rs.sort_full(x[:m]))
+        if got != full_sort_launches(m):
+            fail(f"sort_full of {m} keys launched {got}, expected {full_sort_launches(m)}")
+        paths[f"sort_full {m}"] = got
+    mesh4 = key_mesh([dev] * MESH_RANKS)
+    out, got = launched(lambda: port.sort_distributed(x, mesh=mesh4, width=8))
+    nsteps = 32 // 8
+    if not torch.equal(out.view(torch.int32), sorted_by_library(x).view(torch.int32)):
+        fail("sort_distributed on four ranks differs from torch.sort")
+    paths["sort_distributed w8, 4 ranks of one card"] = got
+    log(f"onesweep: launches on its paths {paths} (sort_distributed: {nsteps + 1} sorts a "
+        f"rank, {MESH_RANKS} ranks)")
+    res["launches"] = paths
+    del x, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def onesweep_main() -> int:
+    """``--onesweep``: the kernels' build and the onesweep sort alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from gpu_radix_sort_tpu_torch.kernels import build
+
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)
+    ptxas = start_ptxas_report()
+    lib = build.load()
+    log(f"build: {build.library_path().name} ready in {time.perf_counter() - t_start:.2f} s")
+    info = {name: lines for name, lines in ptxas_report(ptxas).items() if "onesweep" in name}
+    for name, lines in info.items():
+        log(f"ptxas [{name}]: {'; '.join(lines)}")
+    occupancy = blocks_per_sm(lib, "grs_onesweep_blocks_per_sm")
+    log(f"occupancy [onesweep_pass_kernel]: {occupancy[0]} blocks a SM with {occupancy[1]} "
+        f"bytes of dynamic shared memory")
+    res = onesweep_path(torch.device("cuda", 0), card, lib)
+    print(json.dumps({"onesweep": res, "ptxas": info, "blocks_per_sm": occupancy,
+                      "card": card}))
+    log(f"chip_smoke --onesweep: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def log_profile(card: str, what: str, fn, top: int = 8) -> None:
     """Profile ``fn`` (device_profile) and log its device time a call, its
     idle share and the ``top`` kernels that took most."""
@@ -3003,6 +3289,7 @@ def main() -> int:
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import digit_sort as ds
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.ops import single_block as sb
     from gpu_radix_sort_tpu_torch.ops.bits import sortable_digits, to_int64
@@ -3029,6 +3316,8 @@ def main() -> int:
         for tile in (bs.TILE, 512)}
     rank_info["merge_level_kernel"]["blocks_per_sm"] = {
         f"{ms.B_OUT} keys a block": blocks_per_sm(lib, "grs_merge_level_blocks_per_sm")}
+    rank_info["onesweep_pass_kernel"]["blocks_per_sm"] = {
+        f"{osw.TILE} keys a block": blocks_per_sm(lib, "grs_onesweep_blocks_per_sm")}
     rank_info["group_sort_send_kernel"]["blocks_per_sm"] = {
         f"tile={1 << 14} w8 {what}": blocks_per_sm(
             lib, "grs_group_sort_send_blocks_per_sm", 1 << 14, 8, nranks)
@@ -3200,24 +3489,24 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    bs.launches = ms.launches = ds.launches = bn.launches = sb.launches = 0
+    bs.launches = ms.launches = ds.launches = bn.launches = sb.launches = osw.launches = 0
     t0 = time.perf_counter()
     out = rs.sort_full(keys)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"block_sort": bs.launches, "merge_level": ms.launches}
+    launches = {"onesweep": osw.launches, "block_sort": bs.launches,
+                "merge_level": ms.launches}
     if ds.launches or bn.launches or sb.launches:
         fail(f"sort_full launched digit_sort {ds.launches}, binning {bn.launches}, "
              f"single_block_sort {sb.launches}")
     peak_mib = (torch.cuda.max_memory_allocated() - held) / 2**20
-    levels = (N_MAIN // TILE - 1).bit_length()
+    want_launches = {**dict.fromkeys(launches, 0), **full_sort_launches(N_MAIN)}
     log(f"main path: sort_full of {N_MAIN} PCG32 keys, launches {launches} "
-        f"(merge levels expected {levels}); first call {first_ms:.1f} ms by host "
+        f"(expected {want_launches}); first call {first_ms:.1f} ms by host "
         f"clock; peak device memory {peak_mib:.0f} MiB above the "
         f"{keys.numel() * 4 / 2**20:.0f} MiB of keys")
-    if launches["block_sort"] < 1 or launches["merge_level"] != levels:
-        fail(f"main path launches {launches}, expected block_sort >= 1 and "
-             f"merge_level == {levels}")
+    if launches != want_launches:
+        fail(f"main path launches {launches}, expected {want_launches}")
     if not checks.check_sort_full(out.cpu().numpy(), keys_np):
         fail("sort_full of 64M keys differs from np.sort")
     log("main path: exact against np.sort")
@@ -3468,6 +3757,8 @@ def main() -> int:
         log(f"step: {name} done {steps[name]:.1f} s into the script")
 
     step_done("build, kernel checks, sort_full and partial paths")
+    onesweep = onesweep_path(dev, card, lib)
+    step_done("onesweep sort")
     keep: dict = {}
     kv = kv_table_path(dev, card, part, part_np, zipf_keys, keep)
     step_done("kv, 64-bit and table paths")
@@ -3532,7 +3823,8 @@ def main() -> int:
         kernel("block_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:131",
                launches["block_sort"], err_block, ms_block, ms_block_plain,
                block_bound, ms_block_lib, network="register_bitonic.cuh, windowed",
-               launches_group_aggregate=kv["launches"]["group_aggregate count zipf"]["block_sort"],
+               launches_group_aggregate=kv["launches"]["group_aggregate count zipf"].get(
+                   "block_sort", 0),
                pass_256Mi_ms=mesh["tile_pass_256Mi_ms"],
                launches_mesh_one_rank=mesh["launches_one_rank"]["block_sort"],
                launches_storage={k: v["block_sort"] for k, v in st_launches.items()
@@ -3556,7 +3848,8 @@ def main() -> int:
         kernel("merge_level", "merge_path.cu", "gpu_radix_sort_tpu/ops/pallas_merge.py:335",
                launches["merge_level"], err_merge, ms_merge, ms_merge_plain,
                merge_bound, ms_merge_lib, top_level_ms=ms_merge_top,
-               launches_group_aggregate=kv["launches"]["group_aggregate count zipf"]["merge_level"],
+               launches_group_aggregate=kv["launches"]["group_aggregate count zipf"].get(
+                   "merge_level", 0),
                level_256Mi_ms=mesh["merge_level_256Mi_ms"],
                launches_mesh_one_rank=mesh["launches_one_rank"]["merge_level"],
                launches_storage={k: v["merge_level"] for k, v in st_launches.items()
@@ -3566,6 +3859,26 @@ def main() -> int:
                launches_bench=on_path(bench, "merge_level"),
                launches_multihost=mh_launches("merge_level"),
                **rank_info["merge_level_kernel"]),
+        kernel("onesweep", "onesweep.cu", None, launches["onesweep"], onesweep["max_abs_err"],
+               onesweep[f"n={N_PART}"]["ms"], onesweep[f"n={N_PART}"]["plain_ms"],
+               bound(8 * N_PART, 0), onesweep[f"n={N_PART}"]["library_ms"],
+               why="sort_full above ONESWEEP_MIN_N keys: 4.5 passes over the keys "
+                   "against the merge route's 15 at 256Mi",
+               algorithm_bound_ms=onesweep[f"n={N_PART}"]["algorithm_bound_ms"],
+               histogram_ms=onesweep[f"n={N_PART}"]["histogram_ms"],
+               pass_ms=onesweep[f"n={N_PART}"]["pass_ms"],
+               launches_profiled=onesweep[f"n={N_PART}"]["launches_profiled"],
+               at_320Mi=onesweep[f"n={5 * (1 << 26) + 256}"],
+               exact_cases=onesweep["exact_cases"], crossover=onesweep["crossover"],
+               crossover_first_win=onesweep["crossover_first_win"],
+               launches_onesweep_paths=onesweep["launches"],
+               launches_storage={k: v["onesweep"] for k, v in st_launches.items()
+                                 if "onesweep" in v},
+               launches_sample=on_path(sample, "onesweep"),
+               launches_hash_aggregate=on_path(aggregate, "onesweep"),
+               launches_bench=on_path(bench, "onesweep"),
+               launches_multihost=mh_launches("onesweep"),
+               **rank_info["onesweep_pass_kernel"]),
         kernel("digit_sort", "block_sort.cu", "gpu_radix_sort_tpu/ops/pallas_sort.py:185",
                small_launches, err_digit, ms_ds, ms_ds_plain, digit_bound, ms_ds_lib,
                timed="CUDA graph of 20 calls", w17_ms=ms_ds17, w17_library_ms=ms_ds17_lib,
@@ -3697,6 +4010,7 @@ def all_cards_path(devs: list, card: str, agg_inputs) -> dict:
     from gpu_radix_sort_tpu_torch.ops import binning as bn
     from gpu_radix_sort_tpu_torch.ops import block_sort as bs
     from gpu_radix_sort_tpu_torch.ops import merge_sort as ms
+    from gpu_radix_sort_tpu_torch.ops import onesweep as osw
     from gpu_radix_sort_tpu_torch.ops import radix_sort as rs
     from gpu_radix_sort_tpu_torch.parallel import distributed as dist
     from gpu_radix_sort_tpu_torch.parallel import pipeline as pp
@@ -3747,16 +4061,14 @@ def all_cards_path(devs: list, card: str, agg_inputs) -> dict:
     want = np.sort(part_np)
     part = torch.from_numpy(part_np).to(devs[0])
     n_local = N_MESH // P
-    counters = {"segment_copy": rx, "group_sort_send": ov, "block_sort": bs,
-                "merge_level": ms, "binning": bn}
+    counters = {"segment_copy": rx, "group_sort_send": ov, "onesweep": osw,
+                "block_sort": bs, "merge_level": ms, "binning": bn}
     nsteps = 32 // 8
-    levels = (n_local // bs.TILE - 1).bit_length()
+    none = dict.fromkeys(counters, 0)
     expected = {
-        "rdma": {"segment_copy": nsteps * P, "group_sort_send": 0,
-                 "block_sort": (nsteps + 1) * P, "merge_level": (nsteps + 1) * P * levels,
-                 "binning": 0},
-        "rdma_overlap": {"segment_copy": 0, "group_sort_send": nsteps * P,
-                         "block_sort": 0, "merge_level": 0, "binning": nsteps * P * 2},
+        "rdma": {**none, "segment_copy": nsteps * P,
+                 **full_sort_launches(n_local, (nsteps + 1) * P)},
+        "rdma_overlap": {**none, "group_sort_send": nsteps * P, "binning": nsteps * P * 2},
         "alltoall": None,  # the collective exchange: exactness only
     }
     launches = {}
@@ -3783,11 +4095,11 @@ def all_cards_path(devs: list, card: str, agg_inputs) -> dict:
         sync()
         got = {name: mod.launches for name, mod in counters.items()}
         launches[f"sample {reassembly}"] = got
-        reassembly_levels = (((P * cap + n_local - 1) // bs.TILE).bit_length()
-                             if reassembly == "sort" else ((P * cap + n_local - 1) // cap).bit_length())
-        expect = {"segment_copy": 0, "group_sort_send": 0,
-                  "block_sort": P * (2 if reassembly == "sort" else 1),
-                  "merge_level": P * (levels + reassembly_levels), "binning": 0}
+        m = P * cap + n_local
+        expect = {**none, **launches_sum(
+            full_sort_launches(n_local, P),
+            full_sort_launches(m, P) if reassembly == "sort"
+            else {"merge_level": P * ((m - 1) // cap).bit_length()})}
         log(f"all cards: sort_distributed_sample(reassembly={reassembly!r}) of {N_MESH} "
             f"PCG32 keys on {P} cards, launches {got}")
         if got != expect:
@@ -3844,8 +4156,7 @@ def all_cards_path(devs: list, card: str, agg_inputs) -> dict:
     n_agg = keys_np.size
     keys = torch.from_numpy(keys_np).to(devs[0])
     n_agg_local = n_agg // P
-    expect = {"segment_copy": 0, "group_sort_send": 0, "block_sort": P,
-              "merge_level": P * ((n_agg_local - 1) // bs.TILE).bit_length(),
+    expect = {**none, **full_sort_launches(n_agg_local, P),
               "binning": P * 2 * (32 // bn.PASS_WIDTH)}
     for where, m in (("cards", mesh), ("one_card", one_card)):
         fn, _ = pp.build_hash_aggregate(m, n_agg_local, op="count")
@@ -4042,5 +4353,5 @@ if __name__ == "__main__":
     mains = {("--all-cards",): all_cards_main, ("--storage",): storage_main,
              ("--sample",): sample_main, ("--aggregate",): aggregate_main,
              ("--bench",): bench_main, ("--multihost",): multihost_main,
-             ("--out-of-core",): out_of_core_main}
+             ("--out-of-core",): out_of_core_main, ("--onesweep",): onesweep_main}
     sys.exit(mains.get(tuple(sys.argv[1:]), main)())

@@ -60,6 +60,10 @@ _SIGNATURES = {
     "grs_group_sort_send_u32": (_P, ctypes.c_longlong, ctypes.c_int,
                                 ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
                                 _P, _P, _P),
+    # (x, tmp, out, n, scratch, scratch_words, stream)
+    "grs_onesweep_sort_u32": (_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P),
+    # (tile, header)
+    "grs_onesweep_geometry": (_P, _P),
     # (device, peer)
     "grs_enable_peer_access": (ctypes.c_int, ctypes.c_int),
     # () -> the size of an IPC handle
@@ -79,6 +83,8 @@ _SIGNATURES = {
     "grs_merge_level_blocks_per_sm": (_P, _P),
     # (n, width, blocks, smem_bytes)
     "grs_digit_sort_blocks_per_sm": (ctypes.c_longlong, ctypes.c_int, _P, _P),
+    # (blocks, smem_bytes)
+    "grs_onesweep_blocks_per_sm": (_P, _P),
     # (tile, width, nranks, blocks, smem_bytes)
     "grs_group_sort_send_blocks_per_sm": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                           _P, _P),

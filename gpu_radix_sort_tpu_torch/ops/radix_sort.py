@@ -19,7 +19,10 @@ Port of ``gpu_radix_sort_tpu/ops/radix_sort.py``:
 
 Strategies (per call, or via :func:`set_default_strategy`):
   * ``"auto"``  — the hand-written kernels.  Full sorts: n <= TILE keys in
-    one block (``single_block``), larger n through ``sort_full_large``.  Digit
+    one block (``single_block``), n from ONESWEEP_MIN_N to
+    ``onesweep.MAX_N`` through the onesweep radix sort
+    (``onesweep.sort_full_onesweep``), any other n through
+    ``sort_full_large`` (tile pass and merge levels).  Digit
     sorts: n <= MAX_N_KV with width + pos_bits < 32 in one block
     (``digit_sort``), anything else through binning passes.  Key-value sorts
     at every n through binning passes, which carry one 4-byte value column,
@@ -41,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.timers import span
-from . import binning, block_sort, digit_sort, merge_sort, single_block
+from . import binning, block_sort, digit_sort, merge_sort, onesweep, single_block
 from .bits import (
     INT64_MIN, KEY64_DTYPES, KEY_DTYPE, as_tensor, decode_ordered,
     decode_ordered64, digit_mask, digits64, encode_ordered, encode_ordered64,
@@ -49,6 +52,20 @@ from .bits import (
     validate_digit_range,
 )
 from .boundaries import compute_boundaries, digit_counts_sorted
+
+# Full sorts of ONESWEEP_MIN_N <= n <= onesweep.MAX_N keys take the onesweep
+# radix sort, any other n above single_block.MAX_N the tile pass and merge
+# levels.  The
+# crossover, measured on an H100 80GB HBM3 at 700 W (chip_smoke.py
+# --onesweep; a call with its host work, CUDA-event median of 30, ms,
+# onesweep / merge route), two sweeps:
+#   2^15 0.1158 / 0.0842 and 0.0915 / 0.0567,
+#   2^16 0.0925 / 0.0695 and 0.1171 / 0.1209,
+#   2^17 0.1033 / 0.1265 and 0.1318 / 0.1696,
+#   2^18 0.1269 / 0.2036 and 0.1100 / 0.1738,
+#   2^19 .. 2^22 onesweep in both (2^22 0.1584 / 0.2096 and 0.1727 / 0.2316).
+# 2^17 is the first size both put on its side.
+ONESWEEP_MIN_N = 1 << 17
 
 _DEFAULT_STRATEGY = "auto"
 _VALID = ("auto", "torch")
@@ -68,9 +85,9 @@ def get_default_strategy() -> str:
 def _resolve(
     strategy: str | None, n: int, kind: str = "full", width: int | None = None
 ) -> str:
-    """The route a sort of n keys takes: "single_block" or "merge" for a full
-    sort, "digit_sort" or "binning" for a stable digit sort (kind "kv") by
-    ``width`` bits, or "torch"."""
+    """The route a sort of n keys takes: "single_block", "merge" or
+    "onesweep" for a full sort, "digit_sort" or "binning" for a stable digit
+    sort (kind "kv") by ``width`` bits, or "torch"."""
     name = strategy or _DEFAULT_STRATEGY
     if name not in _VALID:
         raise ValueError(f"strategy must be one of {_VALID}, got {name!r}")
@@ -78,7 +95,9 @@ def _resolve(
         return "torch"
     if kind == "kv":
         return "digit_sort" if digit_sort.supported(n, width) else "binning"
-    return "single_block" if n <= single_block.MAX_N else "merge"
+    if n <= single_block.MAX_N:
+        return "single_block"
+    return "onesweep" if ONESWEEP_MIN_N <= n <= onesweep.MAX_N else "merge"
 
 
 def _sort_full_torch(keys: torch.Tensor) -> torch.Tensor:
@@ -102,7 +121,9 @@ def sort_full(keys, *, strategy: str | None = None) -> torch.Tensor:
             return _sort_full_torch(keys)
         if route == "single_block":
             return single_block.sort_single_block(keys)
-        return merge_sort.sort_full_large(keys)
+        if route == "merge":
+            return merge_sort.sort_full_large(keys)
+        return onesweep.sort_full_onesweep(keys)
 
 
 def _sort_by_digits_rotated(

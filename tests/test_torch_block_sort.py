@@ -219,7 +219,7 @@ def test_c_entry_points_match_the_ctypes_signatures():
     takes: a pointer passed without c_void_p would be cut to 32 bits."""
     sources = "".join(p.read_text() for p in build._sources())
     assert {p.name for p in build._sources()} == {
-        "binning.cu", "block_sort.cu", "exchange.cu", "merge_path.cu"}
+        "binning.cu", "block_sort.cu", "exchange.cu", "merge_path.cu", "onesweep.cu"}
     for name, argtypes in build._SIGNATURES.items():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", sources)
         assert m, name
