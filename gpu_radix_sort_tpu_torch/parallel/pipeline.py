@@ -38,6 +38,13 @@ summing to -0.0, extended by a +0.0 identity row, reads +0.0.
 
 Nothing inside the function :func:`build_hash_aggregate` returns waits on
 the host; :func:`hash_aggregate_distributed` reads the device once after it.
+Each phase is a span for the profiler (``utils/timers.span``): the whole
+function is ``grs.aggregate``; inside it, a rank's filter and hash order is
+``grs.aggregate.hash_order``, each combine ``grs.aggregate.combine`` (two a
+rank: the local one and the final one), the splitters and the exchange
+``grs.aggregate.splitters`` and ``grs.aggregate.exchange`` once a call,
+and a rank's final pack and key-value sort ``grs.aggregate.merge``.  The
+spans of ``sort_full`` and of the binning passes nest inside them.
 The JAX package's program cache (``_cached_hash_aggregate``) has no
 counterpart: it avoided recompiles of its jitted program, and nothing here
 compiles.
@@ -51,6 +58,7 @@ import torch
 from ..ops.bits import KEY_DTYPE, raw_view, to_int64
 from ..ops.radix_sort import sort_full, sort_key_value
 from ..ops.table import VALID_AGG_OPS, _unhash_u32, group_aggregate_sorted, hash_u32, pack_by_mask
+from ..utils.timers import span
 from .distributed import OverflowError_
 from .exchange import default_capacity, send_windows
 from .mesh import (
@@ -175,43 +183,51 @@ def _pipeline(keys: list, values: list, row_valid: list, *, capacity: int, op: s
     # 1. filter, hash order, local combine
     combined = []
     for k, v, m in zip(keys, values, row_valid):
-        mask = m.to(torch.bool)
-        if predicate is not None:
-            mask = mask & predicate(to_int64(k))
-        sk, sv, kept = _hash_order(k, None if op == "count" else v, mask)
-        if sv is None:  # count: a sum of ones, so that padding rows carry 0
-            sv = torch.ones(sk.shape[0], dtype=torch.int32, device=sk.device).view(KEY_DTYPE)
-        uniq, agg, ng = _combine_sorted(sk, sv, kept, merge_op)
-        uniq, agg = _neutralize_tail(uniq, agg, ng, merge_op)
+        with span("grs.aggregate.hash_order"):
+            mask = m.to(torch.bool)
+            if predicate is not None:
+                mask = mask & predicate(to_int64(k))
+            sk, sv, kept = _hash_order(k, None if op == "count" else v, mask)
+        with span("grs.aggregate.combine"):
+            if sv is None:  # count: a sum of ones, so that padding rows carry 0
+                sv = torch.ones(sk.shape[0], dtype=torch.int32, device=sk.device).view(KEY_DTYPE)
+            uniq, agg, ng = _combine_sorted(sk, sv, kept, merge_op)
+            uniq, agg = _neutralize_tail(uniq, agg, ng, merge_op)
         combined.append((uniq, agg, ng))
 
     # 2. splitters over the hash order
-    hashes = [_flipped_hashes(uniq, ng) for uniq, _, ng in combined]
-    gathered = all_gather([_samples(hf, ng, P) for hf, (_, _, ng) in zip(hashes, combined)],
-                          mesh)
-    bounds = [_send_bounds(hf, ng, g) for hf, (_, _, ng), g in zip(hashes, combined, gathered)]
-    del hashes, gathered
+    with span("grs.aggregate.splitters"):
+        hashes = [_flipped_hashes(uniq, ng) for uniq, _, ng in combined]
+        gathered = all_gather([_samples(hf, ng, P) for hf, (_, _, ng) in zip(hashes, combined)],
+                              mesh)
+        bounds = [_send_bounds(hf, ng, g)
+                  for hf, (_, _, ng), g in zip(hashes, combined, gathered)]
+        del hashes, gathered
 
     # 3. the capacity-bounded exchange
-    send_count = [b[1:] - b[:-1] for b in bounds]
-    overflow = psum([(c > capacity).any().to(torch.int32) for c in send_count], mesh)
-    recv_k = all_to_all([_padded_windows(uniq, b[:-1], capacity, 0)
-                         for (uniq, _, _), b in zip(combined, bounds)], mesh)
-    recv_a = all_to_all([_padded_windows(agg, b[:-1], capacity, _identity_bits(merge_op, agg.dtype))
-                         for (_, agg, _), b in zip(combined, bounds)], mesh)
-    counts_mat = all_gather(send_count, mesh)
-    agg_dtype = combined[0][1].dtype
-    del combined, bounds
+    with span("grs.aggregate.exchange"):
+        send_count = [b[1:] - b[:-1] for b in bounds]
+        overflow = psum([(c > capacity).any().to(torch.int32) for c in send_count], mesh)
+        recv_k = all_to_all([_padded_windows(uniq, b[:-1], capacity, 0)
+                             for (uniq, _, _), b in zip(combined, bounds)], mesh)
+        recv_a = all_to_all([_padded_windows(agg, b[:-1], capacity,
+                                             _identity_bits(merge_op, agg.dtype))
+                             for (_, agg, _), b in zip(combined, bounds)], mesh)
+        counts_mat = all_gather(send_count, mesh)
+        agg_dtype = combined[0][1].dtype
+        del combined, bounds
 
     # 4. final merge
     out_k, out_a, ngroups = [], [], []
     for i, (rk, ra, cm) in enumerate(zip(recv_k, recv_a, counts_mat)):
-        valid = (_positions(capacity, rk.device)[None, :] < cm[:, first + i, None]).reshape(-1)
-        pk, pa, total = pack_by_mask(valid, rk.reshape(-1), ra.reshape(-1))
-        tail = _positions(pk.shape[0], pk.device) >= total
-        pk = torch.where(tail, _PAD_WORD, pk).view(KEY_DTYPE)
-        sk, sa = sort_key_value(pk, pa.view(agg_dtype))
-        uniq, agg, ng = _combine_sorted(sk, sa, total, merge_op)
+        with span("grs.aggregate.merge"):
+            valid = (_positions(capacity, rk.device)[None, :] < cm[:, first + i, None]).reshape(-1)
+            pk, pa, total = pack_by_mask(valid, rk.reshape(-1), ra.reshape(-1))
+            tail = _positions(pk.shape[0], pk.device) >= total
+            pk = torch.where(tail, _PAD_WORD, pk).view(KEY_DTYPE)
+            sk, sa = sort_key_value(pk, pa.view(agg_dtype))
+        with span("grs.aggregate.combine"):
+            uniq, agg, ng = _combine_sorted(sk, sa, total, merge_op)
         out_k.append(uniq)
         out_a.append(agg)
         ngroups.append(ng.to(torch.int32).view(1))
@@ -247,11 +263,12 @@ def build_hash_aggregate(
     capacity = default_capacity(n_local, mesh.shape[axis], capacity_factor)
 
     def fn(keys, values, row_valid):
-        keys = _check_shards(keys, mesh, n_local, "uint32 key")
-        values = _check_shards(values, mesh, n_local, "value")
-        row_valid = _check_shards(row_valid, mesh, n_local, "row_valid")
-        return _pipeline(keys, values, row_valid, capacity=capacity, op=op,
-                         predicate=predicate, mesh=mesh)
+        with span("grs.aggregate"):
+            keys = _check_shards(keys, mesh, n_local, "uint32 key")
+            values = _check_shards(values, mesh, n_local, "value")
+            row_valid = _check_shards(row_valid, mesh, n_local, "row_valid")
+            return _pipeline(keys, values, row_valid, capacity=capacity, op=op,
+                             predicate=predicate, mesh=mesh)
 
     return fn, capacity
 
